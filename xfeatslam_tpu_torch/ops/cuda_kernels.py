@@ -1,0 +1,265 @@
+"""Wrappers of the hand-written CUDA kernels, with their plain PyTorch
+versions and launch counters.
+
+Counterpart of ``xfeatslam_tpu/ops/pallas_kernels.py``. Each wrapper
+takes the same arguments and returns the same layout as the JAX function
+it replaces. On a CPU tensor it runs the plain version; on a CUDA tensor
+it launches its kernel (from ``csrc/``, built at first use by
+``_build.py``) on the current stream or raises, never falling back. Each
+wrapper counts its kernel launches in a plain int attribute,
+``<wrapper>.launches``.
+
+Kernels:
+  detect_candidates     csrc/detect_candidates.cu  (pallas_kernels.py:373)
+  bilinear_desc_sample  csrc/desc_sample.cu        (pallas_kernels.py:504)
+  mutual_nn_pairs       csrc/mnn_pairs.cu          (pallas_kernels.py:595)
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+
+# Per-cell candidate slots: 5x5 NMS forces >= 3 px spacing, so an 8x8 cell
+# holds at most ceil(8/3)^2 = 9 distinct-score survivors.
+NC_CAND = 9
+# shared-memory budget of one detect CTA: two CTAs fit on an SM at 640 px
+_DETECT_SMEM = 100 * 1024
+_SMEM_MAX = 227 * 1024
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry point -> (library in csrc/, argument types; the stream comes last)
+_ENTRY_POINTS = {
+    "detect_candidates": ("detect_candidates",
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
+    "desc_sample": ("desc_sample", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "mnn_rows": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+}
+_entries: dict = {}
+
+
+def _entry(fn: str):
+    """The C entry point ``fn`` with its argument types declared."""
+    f = _entries.get(fn)
+    if f is None:
+        library, argtypes = _ENTRY_POINTS[fn]
+        f = getattr(_build.load(library), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _entries[fn] = f
+    return f
+
+
+def _launch(fn: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _entry(fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
+
+
+def _on_cuda(*tensors) -> bool:
+    """True if every tensor lies on a CUDA device, False if all lie on the
+    CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors must all lie on one CUDA device or all on the "
+                     f"CPU, got {[str(t.device) for t in tensors]}")
+
+
+def _check(t, name, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t) -> int:
+    return t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# 1. detect_candidates
+
+
+def detect_candidates_plain(logits, heatmap, threshold: float = 0.05,
+                            softmax_temp: float = 1.0, nc: int = NC_CAND):
+    """Plain version: the cell-space ops of ``ops/detect.py``."""
+    from . import detect  # detect imports this module
+
+    ranked, p = detect.ranked_score_cells(logits, heatmap, threshold,
+                                          softmax_temp)
+    return detect.cell_candidates(ranked, detect.packed_aux_cells(p), nc)
+
+
+def detect_candidates(logits, heatmap, threshold: float = 0.05,
+                      softmax_temp: float = 1.0, nc: int = NC_CAND):
+    """(B,H8,W8,65) logits + (B,H8,W8,1) reliability -> per-cell
+    candidates vals, aux, each (B,H8,nc,W8) float32:
+      vals  ranking score of the cell's r-th best pixel (-1 where it is not
+            an NMS survivor),
+      aux   float32-exact packed integer ch<<18 | qx<<9 | qy, ch = py*8+px
+            the channel in the cell, q the quantized soft-argmax offsets.
+    Candidate (b, cy, r, cx) is pixel (cy*8+ch//8, cx*8+ch%8)."""
+    if not _on_cuda(logits, heatmap):
+        return detect_candidates_plain(logits, heatmap, threshold,
+                                       softmax_temp, nc)
+    B, H8, W8, _ = logits.shape
+    _check(logits, "logits", torch.float32, (B, H8, W8, 65))
+    _check(heatmap, "heatmap", torch.float32, (B, H8, W8, 1))
+    if not 1 <= nc <= 64:
+        raise ValueError(f"nc must lie in [1, 64], got {nc}")
+    W = W8 * 8
+    rows = _DETECT_SMEM // (W * 4)
+    S = max(1, min(H8, (rows - 4) // 8))
+    if (S * 8 + 4) * W * 4 > _SMEM_MAX:
+        raise ValueError(f"detect_candidates: images {W} px wide exceed the "
+                         "kernel's shared memory")
+    vals = torch.empty((B, H8, nc, W8), dtype=torch.float32,
+                       device=logits.device)
+    aux = torch.empty_like(vals)
+    if B * H8 == 0:
+        return vals, aux
+    # the reliability positions' scale, rounded to float32 once, as JAX does
+    scale_x = float(np.float32(W8 / (W - 1.0)))
+    scale_y = float(np.float32(H8 / (H8 * 8 - 1.0)))
+    _launch("detect_candidates", _ptr(logits), _ptr(heatmap), _ptr(vals),
+            _ptr(aux), B, H8, W8, nc, S, threshold, softmax_temp, scale_x,
+            scale_y)
+    detect_candidates.launches += 1
+    return vals, aux
+
+
+detect_candidates.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2. bilinear_desc_sample
+
+
+def _l2n(x):
+    return x * torch.rsqrt(torch.sum(x * x, dim=-1, keepdim=True) + 1e-12)
+
+
+def bilinear_desc_sample_plain(feats, idx4, w4):
+    """Plain version: normalize the grid, gather the 4 taps, weight, sum,
+    renormalize."""
+    B, NP, C = feats.shape
+    K = idx4.shape[1]
+    taps = torch.gather(_l2n(feats), 1,
+                        idx4.long().reshape(B, K * 4, 1).expand(-1, -1, C))
+    d = (taps.reshape(B, K, 4, C) * w4[..., None]).sum(dim=2)
+    return _l2n(d)
+
+
+def bilinear_desc_sample(feats, idx4, w4):
+    """Normalize -> 4-tap bilinear descriptor sampling -> renormalize.
+
+    Args:
+      feats: (B, NP, 64) raw dense descriptors (NP = H8*W8 grid pixels).
+      idx4: (B, K, 4) int32 grid-row index of each tap, in [0, NP)
+        (out-of-bounds taps clamped in bounds and given weight 0).
+      w4: (B, K, 4) float32 tap weights, zero for out-of-bounds taps and
+        invalid keypoints.
+    Returns (B, K, 64) L2-normalized descriptors; rows whose weights are all
+    zero are zero."""
+    if not _on_cuda(feats, idx4, w4):
+        return bilinear_desc_sample_plain(feats, idx4, w4)
+    B, NP, _ = feats.shape
+    K = idx4.shape[1]
+    _check(feats, "feats", torch.float32, (B, NP, 64))
+    _check(idx4, "idx4", torch.int32, (B, K, 4))
+    _check(w4, "w4", torch.float32, (B, K, 4))
+    if feats.data_ptr() % 8:
+        raise ValueError("feats: must be 8-byte aligned (read as float2)")
+    out = torch.empty((B, K, 64), dtype=torch.float32, device=feats.device)
+    _launch("desc_sample", _ptr(feats), _ptr(idx4), _ptr(w4), _ptr(out), B,
+            NP, K)
+    bilinear_desc_sample.launches += 1
+    return out
+
+
+bilinear_desc_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 3. mutual_nn_pairs
+
+
+def _distances(s1, s2):
+    return (2.0 - 2.0 * s1) * 512.0, (2.0 - 2.0 * s2) * 512.0
+
+
+def mutual_nn_pairs_plain(desc_a, desc_b, valid_a, valid_b):
+    """Plain version: the full similarity matrices, masked, reduced."""
+    sim = torch.bmm(desc_a, desc_b.transpose(1, 2))
+    sim = sim.masked_fill(~valid_b[:, None, :], float("-inf"))
+    s1, idx = sim.max(dim=2)
+    s2 = sim.scatter(2, idx[..., None], float("-inf")).amax(dim=2)
+    col_best = sim.masked_fill(~valid_a[:, :, None], float("-inf")).argmax(dim=1)
+    best, second = _distances(s1, s2)
+    return best, second, idx.to(torch.int32), col_best.to(torch.int32)
+
+
+def mutual_nn_pairs(desc_a, desc_b, valid_a, valid_b):
+    """Mutual-NN primitives over aligned frame pairs.
+
+    Args:
+      desc_a (P, N, 64), desc_b (P, M, 64) float32: pair i matches
+        desc_a[i] against desc_b[i].
+      valid_a (P, N), valid_b (P, M) bool.
+    Returns best and second (P, N) distances (2-2s)*512 over valid columns
+    (inf where a row has none), idx (P, N) int32 the first best column, and
+    col_best (P, M) int32 the first best valid row of each valid column (0
+    for an invalid column). Two kernel launches: rows of a against b, then
+    rows of b against a."""
+    if not _on_cuda(desc_a, desc_b, valid_a, valid_b):
+        return mutual_nn_pairs_plain(desc_a, desc_b, valid_a, valid_b)
+    P, N, _ = desc_a.shape
+    M = desc_b.shape[1]
+    _check(desc_a, "desc_a", torch.float32, (P, N, 64))
+    _check(desc_b, "desc_b", torch.float32, (P, M, 64))
+    _check(valid_a, "valid_a", torch.bool, (P, N))
+    _check(valid_b, "valid_b", torch.bool, (P, M))
+    dev = desc_a.device
+
+    def rows(a, b, vb, n):
+        s1 = torch.empty((P, n), dtype=torch.float32, device=dev)
+        s2 = torch.empty_like(s1)
+        i1 = torch.empty((P, n), dtype=torch.int32, device=dev)
+        _launch("mnn_rows", _ptr(a), _ptr(b), _ptr(vb), _ptr(s1), _ptr(s2),
+                _ptr(i1), P, n, b.shape[1])
+        mutual_nn_pairs.launches += 1
+        return s1, s2, i1
+
+    s1, s2, idx = rows(desc_a, desc_b, valid_b, N)
+    _, _, col = rows(desc_b, desc_a, valid_a, M)
+    best, second = _distances(s1, s2)
+    return best, second, idx, torch.where(valid_b, col, 0)
+
+
+mutual_nn_pairs.launches = 0
+
+
+_WRAPPERS = (detect_candidates, bilinear_desc_sample, mutual_nn_pairs)
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last reset."""
+    return {w.__name__: w.launches for w in _WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in _WRAPPERS:
+        w.launches = 0
