@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU.
+"""Drive the PyTorch port's paths on one NVIDIA GPU.
 
 Usage: python3 chip_smoke.py [--batch N]   (from the repository root, one
 CUDA card; the batch defaults to 32)
@@ -8,18 +8,31 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
      TF32 off for float32 parity;
   2. build every CUDA kernel of ``xfeatslam_tpu_torch/csrc`` with nvcc;
-  3. the main path once with the launch counters zeroed just before:
+  3. the batched path once with the launch counters zeroed just before:
      ``extract_batch`` + ``match_consecutive`` on a batch of frames at 640x480,
-     K=1000, float32, the shipped weights; every kernel must have launched;
+     K=1000, float32, the shipped weights; each of its kernels must have
+     launched;
   4. each kernel against its plain PyTorch version on the tensors of that
      run, and the whole path against the plain path on the same card;
   5. ``XFeatExtractor()`` on one 500x700 uint8 frame (resize, sub-pixel
      selection, coordinate rescale);
-  6. CUDA-event timings of the forward, each kernel and its plain version,
+  6. the single-pair matcher path, counted: ``match_consecutive(fused=False)``
+     (``match_mutual_nn`` pair by pair through ``similarity_top2``) against the
+     batched matcher; ``match_mutual_nn`` fused against unfused; the kernel
+     against its plain version on frames 0 and 1 and at odd shapes;
+  7. the online RGB-D frame step: 6 synthetic frames at 640x480 (TUM1
+     intrinsics), a map back-projected from frame 0 (stage 1: M1=1000
+     slots, stage 2: a 4096-row local map), ``xfeat_rgbd_frame_step`` on
+     frames 1-5, counted per frame, held to the ground truth (< 1 cm) and to
+     the plain-kernel path; the monocular configuration once; no host sync
+     inside a step (``torch.cuda.set_sync_debug_mode``);
+  8. CUDA-event timings of the forward, each kernel and its plain version,
      the top-k, a PyTorch yardstick call where one computes the same
-     function, the stages of one batch and the end-to-end frame rate.
+     function, the stages of one batch and the end-to-end frame rate; the
+     frame step per frame and its parts, its host wall time and its CUDA
+     kernel count (``torch.profiler``).
 
-Prints ``kernels: {...}`` with the main run's launch counts, one JSON line
+Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is missing.
@@ -34,6 +47,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -56,7 +70,20 @@ KERNEL_SOURCES = {
                              "xfeatslam_tpu/ops/pallas_kernels.py:505"),
     "mutual_nn_pairs": ("xfeatslam_tpu_torch/csrc/mnn_pairs.cu",
                         "xfeatslam_tpu/ops/pallas_kernels.py:596"),
+    "similarity_top2": ("xfeatslam_tpu_torch/csrc/mnn_pairs.cu",
+                        "xfeatslam_tpu/ops/pallas_kernels.py:84"),
 }
+# the kernels each path must launch
+BATCHED_KERNELS = ("detect_candidates", "bilinear_desc_sample",
+                   "mutual_nn_pairs")
+FRAME_STEP_KERNELS = ("detect_candidates", "bilinear_desc_sample")
+# the online frame step: TrackerConfig's XFeat defaults (slam/tracking.py)
+# and the local-map bucket
+M1, M2 = 1000, 4096
+BF, DEPTH_EDGE_REL, INV_SIGMA2 = 40.0, 0.05, 1.0
+RADIUS_MOTION, RADIUS_LOCAL, TH_HIGH, RATIO = 15.0, 10.0, 1000.0, 0.9
+WIDEN_BELOW, SCALE_FACTOR = 20, 1.2
+N_FRAMES = 6
 
 
 class SmokeFailure(Exception):
@@ -109,7 +136,7 @@ def bound_ms(nbytes, flops):
 @contextlib.contextmanager
 def plain_kernels(ck):
     """Route the wrappers to their plain versions, for the plain path."""
-    names = ("detect_candidates", "bilinear_desc_sample", "mutual_nn_pairs")
+    names = tuple(KERNEL_SOURCES)
     saved = {n: getattr(ck, n) for n in names}
     try:
         for n in names:
@@ -236,6 +263,287 @@ def odd_shape_checks(ck, detect, dev):
                 f"random {P}x{N}x{M}, one pair without valid columns")
 
 
+def path_counts(ck, label, expect):
+    """Read the launch counts of the path just driven and check that each
+    kernel of ``expect`` launched (``expect`` maps a name to an exact count
+    or None for "at least once") and no other did."""
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    print(f"kernels [{label}]: " + json.dumps(counts))
+    for name, n in counts.items():
+        if name not in expect:
+            check(n == 0, f"{label}: kernel {name} launched off its path")
+        elif expect[name] is None:
+            check(n > 0, f"{label}: kernel {name} was not launched")
+        else:
+            check(n == expect[name], f"{label}: kernel {name} launched {n} "
+                  f"times, expected {expect[name]}")
+    return counts
+
+
+def compare_top2(ck, a, b, vb, label):
+    """similarity_top2 kernel vs plain: best column equal on >= 99.9% of
+    rows; s1 and s2 within 1e-6 where the best columns agree; rows without
+    a valid column exactly -inf with column 0."""
+    sk = ck.similarity_top2(a, b, vb)
+    sp = ck.similarity_top2_plain(a, b, vb)
+    agree = sk[2] == sp[2]
+    idx_agree = float(agree.float().mean())
+    err = 0.0
+    for k, p in zip(sk[:2], sp[:2]):
+        fin = agree & torch.isfinite(p)
+        if bool(fin.any()):
+            err = max(err, float((k - p).abs()[fin].max()))
+        check(bool((k[~torch.isfinite(p)] == p[~torch.isfinite(p)]).all()),
+              f"top2 [{label}]: -inf rows differ")
+    none = torch.isneginf(sp[0])
+    check(bool((sk[2][none] == 0).all()), f"top2 [{label}]: empty rows' index")
+    print(f"top2 [{label}]: idx agreement {idx_agree:.6f}, similarity max abs "
+          f"err {err:.3e}, {int(none.sum())} rows without a valid column")
+    check(idx_agree >= 0.999, f"top2 [{label}]: best columns disagree")
+    check(err <= 1e-6, f"top2 [{label}]: similarities differ by more than 1e-6")
+    return {"max_abs_err": err}
+
+
+def single_pair_phase(ck, matching, batched, desc, valid, res_batched, dev):
+    """The single-pair matcher path (kernel 4): counted, against the batched
+    matcher and the unfused route, and the kernel against its plain version
+    on the main path's frames 0 and 1 and at odd shapes."""
+    B = desc.shape[0]
+    ck.reset_launch_counts()
+    res_pp = batched.match_consecutive(desc, valid, fused=False)
+    launches = path_counts(ck, "match_consecutive(fused=False)",
+                           {"similarity_top2": 2 * (B - 1)})
+    idx_agree = float((res_pp.idx == res_batched.idx).float().mean())
+    mask_agree = float((res_pp.mask == res_batched.mask).float().mean())
+    print(f"per-pair vs pair-batched matcher: idx agreement {idx_agree:.6f}, "
+          f"mask agreement {mask_agree:.6f}, matches per pair mean "
+          f"{float(res_pp.mask.sum(1).float().mean()):.1f}")
+    check(idx_agree >= 0.999 and mask_agree >= 0.999,
+          "match_consecutive(fused=False) disagrees with the batched matcher")
+
+    kw = dict(max_dist=matching.TH_LOW * 6, ratio=0.95)
+    rf = matching.match_mutual_nn(desc[0], desc[1], valid[0], valid[1],
+                                  fused=True, **kw)
+    ru = matching.match_mutual_nn(desc[0], desc[1], valid[0], valid[1],
+                                  fused=False, **kw)
+    idx_agree = float((rf.idx == ru.idx).float().mean())
+    mask_agree = float((rf.mask == ru.mask).float().mean())
+    print(f"match_mutual_nn fused vs unfused (frames 0,1): idx agreement "
+          f"{idx_agree:.6f}, mask agreement {mask_agree:.6f}, "
+          f"{int(rf.mask.sum())} matches")
+    check(idx_agree >= 0.999 and mask_agree >= 0.999,
+          "match_mutual_nn's routes disagree")
+    check(bool(torch.isinf(rf.dist[~valid[0]]).all()),
+          "fused route: invalid rows' distance is not inf")
+
+    report = compare_top2(ck, desc[0], desc[1], valid[1], "frames 0,1")
+    rng = np.random.default_rng(2)
+    N, M = 333, 257
+    a = rng.standard_normal((N, 64)).astype(np.float32)
+    b = rng.standard_normal((M, 64)).astype(np.float32)
+    b[:100] = a[:100] + 0.05 * rng.standard_normal((100, 64))
+    a /= np.linalg.norm(a, axis=1, keepdims=True)
+    b /= np.linalg.norm(b, axis=1, keepdims=True)
+    vb = rng.uniform(size=M) > 0.1
+    a_t, b_t = torch.tensor(a, device=dev), torch.tensor(b, device=dev)
+    compare_top2(ck, a_t, b_t, torch.tensor(vb, device=dev),
+                 f"random {N}x{M}, masked columns")
+    compare_top2(ck, a_t, b_t, torch.zeros(M, dtype=torch.bool, device=dev),
+                 f"random {N}x{M}, no valid column")
+    return launches, report
+
+
+def build_map(o, depth, R, t, cam):
+    """Frame 0's valid keypoints with depth, back-projected with the true
+    pose (numpy): even ones fill stage 1's M1 slots, odd ones a local map
+    padded to M2 rows under ids stage 1 does not hold. Keypoints on a depth
+    silhouette (3x3 max - min above DEPTH_EDGE_REL of the depth, the frame
+    step's own gate) get no map point."""
+    kp, desc, val = (o[k][0].cpu().numpy() for k in ("kpts", "desc", "valid"))
+    xi = np.clip(np.round(kp[:, 0]).astype(int), 0, W - 1)
+    yi = np.clip(np.round(kp[:, 1]).astype(int), 0, H - 1)
+    z = depth[yi, xi]
+    nbrs = np.stack([depth[np.clip(yi + dy, 0, H - 1), np.clip(xi + dx, 0, W - 1)]
+                     for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+    z = np.where((nbrs.max(0) - nbrs.min(0) > DEPTH_EDGE_REL * z)
+                 | (nbrs.min(0) <= 0), 0.0, z)
+    Xc = np.stack([(kp[:, 0] - cam.cx) / cam.fx * z,
+                   (kp[:, 1] - cam.cy) / cam.fy * z, z], -1)
+    Xw = ((Xc - t) @ R).astype(np.float32)
+    sel = np.nonzero(val & (z > 0))[0]
+    s1, s2 = sel[0::2], sel[1::2]
+
+    def pad(x, n, fill=0):
+        out = np.full((n,) + x.shape[1:], fill, x.dtype)
+        out[: len(x)] = x
+        return out
+
+    arrays = (pad(Xw[s1], M1), pad(desc[s1], M1),
+              pad(np.ones(len(s1), bool), M1, False),
+              np.zeros(M1, np.float32), np.zeros(M1, np.int32),
+              pad(np.arange(len(s1), dtype=np.int32), M1, -1),
+              pad(Xw[s2], M2), pad(desc[s2], M2),
+              pad(np.ones(len(s2), bool), M2, False),
+              np.zeros(M2, np.float32), np.zeros(M2, np.int32),
+              pad(np.arange(len(s2), dtype=np.int32) + M1, M2, -1),
+              np.full(M2, 10.0, np.float32))
+    return arrays, len(s1), len(s2)
+
+
+def center_err(R, t, pose):
+    """Distance between the estimated and the true camera centre, m."""
+    R, t = R.cpu().numpy(), t.cpu().numpy()
+    Rg, tg = pose
+    return float(np.linalg.norm(-R.T @ t + Rg.T @ tg))
+
+
+def frame_step_phase(model, ck, dev):
+    """The online RGB-D frame step on frames 1-5 of a synthetic sequence,
+    counted per frame, against the truth and the plain-kernel path; the
+    monocular configuration; no host sync inside a step; timings."""
+    from xfeatslam_tpu_torch.models.extractor import extract_fn
+    from xfeatslam_tpu_torch.ops import camera
+    from xfeatslam_tpu_torch.ops import image as image_ops
+    from xfeatslam_tpu_torch.optim import pose_opt, track_step
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    seq = synthetic.make_sequence(N_FRAMES, (H, W))
+    Km = seq["K"]
+    cam = camera.Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2]])
+    imgs = [image_ops.to_float_image(g, dev) for g in seq["images"]]
+    depths = [torch.from_numpy(d).to(dev) for d in seq["depths"]]
+    no_depth = torch.zeros((1, 1), device=dev)
+    o0 = extract_fn(model, imgs[0], K)
+    arrays, n1, n2 = build_map(o0, seq["depths"][0], *seq["poses"][0], cam)
+    maps = tuple(torch.from_numpy(x).to(dev) for x in arrays)
+    print(f"frame step: {N_FRAMES} frames rendered at {W}x{H} and a map "
+          f"built in {time.perf_counter() - t0:.2f} s; stage 1 holds {n1} of "
+          f"{M1} slots, the local map {n2} of {M2} rows")
+
+    def step(i, R0, t0, has_depth=True):
+        return track_step.xfeat_rgbd_frame_step(
+            model, imgs[i], depths[i] if has_depth else no_depth, R0, t0,
+            *maps, cam, BF, DEPTH_EDGE_REL, INV_SIGMA2, RADIUS_MOTION,
+            RADIUS_LOCAL, TH_HIGH, RATIO, WIDEN_BELOW, SCALE_FACTOR,
+            2.0 * cam.cx, 2.0 * cam.cy, num_keypoints=K, n_levels=1,
+            has_depth=has_depth)
+
+    Rg0, tg0 = (torch.from_numpy(x).to(dev) for x in seq["poses"][0])
+    # ---- frames 1-5, each from the previous estimate, counted ----
+    inputs, results, walls = [], [], []
+    R, t = Rg0, tg0
+    for i in range(1, N_FRAMES):
+        ck.reset_launch_counts()
+        tw = time.perf_counter()
+        out, r1, r2 = step(i, R, t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - tw)
+        path_counts(ck, f"frame step, frame {i}",
+                    {name: 1 for name in FRAME_STEP_KERNELS})
+        inputs.append((R, t))
+        results.append((out, r1, r2))
+        R, t = r2.R, r2.t
+    errs = []
+    for i, (out, r1, r2) in zip(range(1, N_FRAMES), results):
+        errs.append(center_err(r2.R, r2.t, seq["poses"][i]))
+        print(f"frame {i}: {int(out['valid'].sum())} keypoints, "
+              f"{int((out['depth'] > 0).sum())} with depth; stage 1 "
+              f"{int(r1.n_matched)} matched / {int(r1.n_inliers)} inliers, "
+              f"stage 2 {int(r2.n_matched)} / {int(r2.n_inliers)}; "
+              f"translation error {errs[-1] * 1e3:.3f} mm")
+        check(int(r1.n_matched) > 0 and int(r2.n_matched) > 0,
+              f"frame {i}: a stage bound no match")
+        check(errs[-1] < 0.01, f"frame {i}: translation error >= 1 cm")
+
+    # ---- no host sync inside a step ----
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(1, *inputs[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's warning for each synchronizing call (its notice that the mode
+    # is a prototype is not one)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"frame step: {len(syncs)} synchronizing calls inside a step"
+          + (f": {syncs[:3]}" if syncs else ""))
+    check(not syncs, "the frame step synchronizes with the host")
+
+    # ---- the same frames through the plain kernels ----
+    t_dev, slot_agree = 0.0, 1.0
+    with plain_kernels(ck):
+        for i, ((R0, t0), (_, k1, k2)) in enumerate(zip(inputs, results), 1):
+            _, p1, p2 = step(i, R0, t0)
+            t_dev = max(t_dev, float((p2.t - k2.t).abs().max()),
+                        float((p2.R - k2.R).abs().max()))
+            for k, p in ((k1, p1), (k2, p2)):
+                slot_agree = min(slot_agree, float(
+                    (k.slot_mp == p.slot_mp).float().mean()))
+    print(f"frame step vs plain-kernel path: pose max abs difference "
+          f"{t_dev:.3e}, slot agreement min {slot_agree:.6f}")
+    check(t_dev <= 1e-4, "frame-step poses differ from the plain path")
+    check(slot_agree >= 0.99, "frame-step slots differ from the plain path")
+
+    # ---- monocular configuration ----
+    _, m1, m2 = step(1, Rg0, tg0, has_depth=False)
+    mono_ok = bool(torch.isfinite(m2.R).all() & torch.isfinite(m2.t).all())
+    print(f"monocular frame 1: stage 1 {int(m1.n_inliers)} inliers, stage 2 "
+          f"{int(m2.n_inliers)} inliers, translation error "
+          f"{center_err(m2.R, m2.t, seq['poses'][1]) * 1e3:.3f} mm")
+    check(mono_ok and int(m2.n_inliers) >= 20, "monocular frame step failed")
+
+    # ---- timings: the step, its parts, host wall, kernel count ----
+    R1, t1 = inputs[0]
+    out1, r1_1, _ = results[0]
+    times = {"frame_step": cuda_ms(lambda: step(1, R1, t1), iters=5,
+                                   warmup=1),
+             "extract_b1": cuda_ms(lambda: extract_fn(model, imgs[1], K))}
+    zeros_k = torch.zeros(K, device=dev)
+    isig = zeros_k + INV_SIGMA2
+    times["two_stages"] = cuda_ms(lambda: track_step.two_stage_track_step(
+        R1, t1, *maps, out1["kpts_un"], out1["desc"], out1["valid"], zeros_k,
+        zeros_k.to(torch.int32), out1["ur"], isig, cam, BF, RADIUS_MOTION,
+        RADIUS_LOCAL, TH_HIGH, RATIO, WIDEN_BELOW, SCALE_FACTOR, 2.0 * cam.cx,
+        2.0 * cam.cy), iters=5, warmup=1)
+    slot = r1_1.slot_mp
+    edges = (slot >= 0) & out1["valid"]
+    Xw = maps[0][slot.long().clamp(min=0)]
+    times["pose_optimization"] = cuda_ms(lambda: pose_opt.pose_optimization(
+        R1, t1, Xw, out1["kpts_un"], out1["ur"], isig,
+        (out1["ur"] > 0) & edges, edges, cam, BF), iters=5, warmup=1)
+    times["host_wall_per_frame"] = float(np.mean(walls[1:])) * 1e3
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        step(1, R1, t1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    launch_calls = sum(1 for e in prof.events()
+                       if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                     "cudaLaunchKernelExC", "cuLaunchKernelEx"))
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    print(f"frame step under torch.profiler: {len(dev_events)} device events, "
+          f"{launch_calls} kernel-launch API calls, device busy "
+          f"{busy_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+          f"({busy_us / 1e6 / wall:.3f}); busy share of the unprofiled step "
+          f"{busy_us / 1e3 / times['frame_step']:.3f}")
+    ops = sorted(((e.key, e.count) for e in prof.key_averages()
+                  if e.key.startswith("aten::")), key=lambda kv: -kv[1])
+    print("frame step: ATen ops with the most calls: "
+          + json.dumps(dict(ops[:12])))
+    print(f"frame step ms at {W}x{H}, K={K}, M1={M1}, M2={M2}, batch 1: "
+          + json.dumps({k: round(v, 4) for k, v in times.items()}))
+
+
 def run(batch: int):
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -248,14 +556,14 @@ def run(batch: int):
     from xfeatslam_tpu_torch.models import weights
     from xfeatslam_tpu_torch.models.extractor import XFeatExtractor
     from xfeatslam_tpu_torch.ops import cuda_kernels as ck
-    from xfeatslam_tpu_torch.ops import detect
+    from xfeatslam_tpu_torch.ops import detect, matching
     from xfeatslam_tpu_torch.parallel import batched
 
     # ---- build ----
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(_build.KERNELS)} "
-          f"kernels (parallel nvcc, sm_90a)")
+          f"kernel sources (parallel nvcc, sm_90a)")
 
     dev = torch.device("cuda")
     model = weights.load_npz(os.path.join(REPO, "weights", "xfeat_synthetic.npz"))
@@ -272,10 +580,8 @@ def run(batch: int):
     ck.reset_launch_counts()
     out, res = main_path()
     torch.cuda.synchronize()
-    launches = ck.launch_counts()
-    print("kernels: " + json.dumps(launches))
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    launches = path_counts(ck, "extract_batch + match_consecutive",
+                           {name: None for name in BATCHED_KERNELS})
     check(out["kpts"].shape == (batch, K, 2) and out["desc"].shape == (batch, K, 64),
           "main path output shapes")
     for k in ("kpts", "scores", "desc"):
@@ -341,6 +647,15 @@ def run(batch: int):
     print(f"extractor: 500x700 frame -> {len(kv)} valid keypoints, x in "
           f"[{lo[0]:.3f}, {hi[0]:.3f}], y in [{lo[1]:.3f}, {hi[1]:.3f}]")
 
+    # ---- the single-pair matcher path (kernel 4) ----
+    launches4, report["similarity_top2"] = single_pair_phase(
+        ck, matching, batched, desc, valid, res, dev)
+    launches["similarity_top2"] = launches4["similarity_top2"]
+    print("kernels: " + json.dumps(launches))
+
+    # ---- the online RGB-D frame step ----
+    frame_step_phase(model, ck, dev)
+
     # ---- timings ----
     P = batch - 1
     times = {}
@@ -362,6 +677,10 @@ def run(batch: int):
     times["mnn_plain"] = cuda_ms(lambda: ck.mutual_nn_pairs_plain(*args))
     times["mnn_library"] = cuda_ms(lambda: torch.bmm(desc[:-1],
                                                      desc[1:].transpose(1, 2)))
+    a0, b0, vb0 = desc[0], desc[1], valid[1]
+    times["top2"] = cuda_ms(lambda: ck.similarity_top2(a0, b0, vb0))
+    times["top2_plain"] = cuda_ms(lambda: ck.similarity_top2_plain(a0, b0, vb0))
+    times["top2_library"] = cuda_ms(lambda: torch.mm(a0, b0.T))
     times["extract"] = cuda_ms(lambda: batched.extract_batch(model, images, K),
                                iters=10)
     times["match"] = cuda_ms(
@@ -388,10 +707,15 @@ def run(batch: int):
         "mutual_nn_pairs": bound_ms(
             2 * P * K * 64 * 4 + 2 * P * K + 4 * P * K * 4,
             float(2 * 64 * K * nvb.sum())),
+        # one pair: both banks and the mask read, three rows written; the
+        # similarities over the valid columns
+        "similarity_top2": bound_ms(2 * K * 64 * 4 + K + 3 * K * 4,
+                                    float(2 * 64 * K * vb0.sum())),
     }
     timed = {"detect_candidates": ("detect", "detect_plain", None),
              "bilinear_desc_sample": ("desc", "desc_plain", "desc_library"),
-             "mutual_nn_pairs": ("mnn", "mnn_plain", "mnn_library")}
+             "mutual_nn_pairs": ("mnn", "mnn_plain", "mnn_library"),
+             "similarity_top2": ("top2", "top2_plain", "top2_library")}
     rows_out = []
     for name, (t_k, t_p, t_l) in timed.items():
         src, rep = KERNEL_SOURCES[name]

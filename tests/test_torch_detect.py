@@ -211,4 +211,5 @@ def test_cpu_calls_launch_no_kernel(rng):
     td.select_keypoints(t(feats), t(logits), t(heat), 20)
     assert ck.launch_counts() == {"detect_candidates": 0,
                                   "bilinear_desc_sample": 0,
-                                  "mutual_nn_pairs": 0}
+                                  "mutual_nn_pairs": 0,
+                                  "similarity_top2": 0}

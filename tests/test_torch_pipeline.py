@@ -115,7 +115,10 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch import _build\n"
         "from xfeatslam_tpu_torch.models import xfeat, weights, extractor\n"
         "from xfeatslam_tpu_torch.ops import image, detect, matching, cuda_kernels\n"
+        "from xfeatslam_tpu_torch.ops import lie, camera\n"
+        "from xfeatslam_tpu_torch.optim import pose_opt, track_step\n"
         "from xfeatslam_tpu_torch.parallel import batched\n"
+        "from xfeatslam_tpu_torch.utils import synthetic\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'xfeatslam_tpu')]\n"

@@ -2,7 +2,12 @@
 // storing the similarity matrix.
 //
 // Replaces: xfeatslam_tpu/ops/pallas_kernels.py mutual_nn_pairs
-// (:595-657; body _mnn_pair_kernel :543-592).
+// (:595-657; body _mnn_pair_kernel :543-592) through the entry point
+// mnn_rows, and similarity_top2 (:84-126; body _top2_kernel :65-80), the
+// single-pair matcher behind mutual_nn_top2 and match_mutual_nn's fused
+// route, through the entry point similarity_top2: the P = 1 case of the
+// same kernel, given its own entry so that its launches are counted apart.
+// The TPU kernel needs N % 256 == 0 (its row tile); here any N is taken.
 //
 // For pair p and row i of a[p]: s1 = max_j a[p,i].b[p,j] over columns with
 // vb[p,j], i1 = the first j reaching it, s2 = the max over every valid
@@ -16,7 +21,12 @@
 //
 // What bounds it on an H100: float32 operations. At batch 32 (31 pairs,
 // K = 1000, D = 64) one launch is 4.0 GFLOP, about 59 us at the 67 TFLOP/s
-// float32 peak of the CUDA cores; the bytes (16 MB) take 5 us.
+// float32 peak of the CUDA cores; the bytes (16 MB) take 5 us. For one pair
+// at N = M = 1000 (similarity_top2) it is 0.128 GFLOP, about 1.9 us at that
+// peak, against 0.5 MB of bytes (0.15 us). What limits that case today is
+// occupancy, not the arithmetic: the grid is ceil(N/64) = 16 CTAs on 132
+// SMs, so 116 SMs idle; splitting the columns over more CTAs (with a merge
+// pass) is a later redesign.
 //
 // Design: float32 on the CUDA cores. A CTA takes one pair and a 64-row tile
 // of a, kept transposed in shared memory; it walks over b in 64-column
@@ -153,4 +163,11 @@ extern "C" int mnn_rows(const float* a, const float* b, const uint8_t* vb,
   mnn_rows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       a, b, vb, s1, s2, i1, N, M);
   return (int)cudaGetLastError();
+}
+
+// One pair: a (N,64) against b (M,64) under the column mask vb (M,).
+extern "C" int similarity_top2(const float* a, const float* b,
+                               const uint8_t* vb, float* s1, float* s2,
+                               int* i1, int N, int M, void* stream) {
+  return mnn_rows(a, b, vb, s1, s2, i1, 1, N, M, stream);
 }

@@ -43,9 +43,10 @@ def extract_fn(model: XFeat, images, num_keypoints: int,
     feats, logits, heatmap = model(x, compute_dtype=compute_dtype)
     out = detect_ops.select_keypoints(feats, logits, heatmap, num_keypoints,
                                       subpixel=True)
-    scale = torch.tensor([W / W32, H / H32], dtype=torch.float32,
-                         device=images.device)
-    out["kpts"] = out["kpts"] * scale
+    # scaled by Python numbers, so no host value is copied to the device
+    k = out["kpts"]
+    out["kpts"] = torch.stack([k[..., 0] * (W / W32), k[..., 1] * (H / H32)],
+                              -1)
     return out
 
 

@@ -13,6 +13,7 @@ Kernels:
   detect_candidates     csrc/detect_candidates.cu  (pallas_kernels.py:373)
   bilinear_desc_sample  csrc/desc_sample.cu        (pallas_kernels.py:504)
   mutual_nn_pairs       csrc/mnn_pairs.cu          (pallas_kernels.py:595)
+  similarity_top2       csrc/mnn_pairs.cu          (pallas_kernels.py:84)
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ _ENTRY_POINTS = {
                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
     "desc_sample": ("desc_sample", [_P, _P, _P, _P, _I, _I, _I, _P]),
     "mnn_rows": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "similarity_top2": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
 }
 _entries: dict = {}
 
@@ -252,7 +254,77 @@ def mutual_nn_pairs(desc_a, desc_b, valid_a, valid_b):
 mutual_nn_pairs.launches = 0
 
 
-_WRAPPERS = (detect_candidates, bilinear_desc_sample, mutual_nn_pairs)
+# ---------------------------------------------------------------------------
+# 4. similarity_top2 (single pair) and its distance wrappers
+
+
+def similarity_top2_plain(desc_a, desc_b, valid_b=None):
+    """Plain version: the full similarity matrix, masked, reduced."""
+    sim = desc_a @ desc_b.T
+    if valid_b is not None:
+        sim = sim.masked_fill(~valid_b[None, :], float("-inf"))
+    s1, i1 = sim.max(dim=1)
+    s2 = sim.scatter(1, i1[:, None], float("-inf")).amax(dim=1)
+    return s1, s2, i1.to(torch.int32)
+
+
+def similarity_top2(desc_a, desc_b, valid_b=None):
+    """Row-wise top-2 similarity of one pair over valid columns, never
+    storing the (N,M) matrix.
+
+    Args:
+      desc_a (N,64), desc_b (M,64) float32; valid_b optional (M,) bool
+        (invalid columns score -inf).
+    Returns s1, s2 (N,) float32 similarities and i1 (N,) int32: ties go to
+    the first column, s2 excludes only column i1 (a tie gives s2 = s1), and
+    a row without a valid column gets s1 = s2 = -inf, i1 = 0. Unlike the
+    TPU kernel, any N is taken (no padding to a row tile)."""
+    if valid_b is None:
+        valid_b = torch.ones(desc_b.shape[0], dtype=torch.bool,
+                             device=desc_b.device)
+    if not _on_cuda(desc_a, desc_b, valid_b):
+        return similarity_top2_plain(desc_a, desc_b, valid_b)
+    N, M = desc_a.shape[0], desc_b.shape[0]
+    _check(desc_a, "desc_a", torch.float32, (N, 64))
+    _check(desc_b, "desc_b", torch.float32, (M, 64))
+    _check(valid_b, "valid_b", torch.bool, (M,))
+    s1 = torch.empty(N, dtype=torch.float32, device=desc_a.device)
+    s2 = torch.empty_like(s1)
+    i1 = torch.empty(N, dtype=torch.int32, device=desc_a.device)
+    _launch("similarity_top2", _ptr(desc_a), _ptr(desc_b), _ptr(valid_b),
+            _ptr(s1), _ptr(s2), _ptr(i1), N, M)
+    similarity_top2.launches += 1
+    return s1, s2, i1
+
+
+similarity_top2.launches = 0
+
+
+def xfeat_best_two_distances(desc_a, desc_b, valid_a=None, valid_b=None):
+    """Row-wise (best, second, argbest) XFeat distances (2-2s)*512 through
+    ``similarity_top2``: the map is decreasing, so the top-2 similarities
+    give the two smallest distances. Invalid rows get inf."""
+    s1, s2, i1 = similarity_top2(desc_a, desc_b, valid_b)
+    d1, d2 = _distances(s1, s2)
+    if valid_a is not None:
+        d1 = d1.masked_fill(~valid_a, float("inf"))
+        d2 = d2.masked_fill(~valid_a, float("inf"))
+    return d1, d2, i1
+
+
+def mutual_nn_top2(desc_a, desc_b, valid_a, valid_b):
+    """Mutual-NN primitives of one pair in two ``similarity_top2`` launches:
+    the row top-2 of a against b, and each column's first best valid row
+    (the row pass of b against a under ``valid_a``). ``col_best_row`` is not
+    masked by ``valid_b``. Returns (best (N,), second (N,), idx (N,) int32,
+    col_best_row (M,) int32)."""
+    d1, d2, i1 = xfeat_best_two_distances(desc_a, desc_b, valid_a, valid_b)
+    _, _, col_best = similarity_top2(desc_b, desc_a, valid_a)
+    return d1, d2, i1, col_best
+
+
+_WRAPPERS = (detect_candidates, bilinear_desc_sample, mutual_nn_pairs,
+             similarity_top2)
 
 
 def launch_counts() -> dict:

@@ -10,6 +10,8 @@ not ported yet.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops import cuda_kernels as ck
@@ -27,9 +29,21 @@ def extract_batch(model, images, num_keypoints: int,
 
 
 @torch.no_grad()
-def match_consecutive(desc, valid, max_dist=matching.TH_LOW * 6, ratio=0.95):
+def match_consecutive(desc, valid, max_dist=matching.TH_LOW * 6, ratio=0.95,
+                      fused: Optional[bool] = None):
     """MNN-match frames (i, i+1) for all i: desc (B,K,64), valid (B,K) ->
-    MatchResult of (B-1,K) tensors."""
+    MatchResult of (B-1,K) tensors.
+
+    None and True run the pair-batched kernel (``mutual_nn_pairs``, two
+    launches for all pairs); False runs ``matching.match_mutual_nn`` pair
+    by pair, the JAX package's vmapped form, which on CUDA tensors takes
+    the single-pair kernel (two launches per pair)."""
+    if fused is False:
+        results = [matching.match_mutual_nn(desc[i], desc[i + 1], valid[i],
+                                            valid[i + 1], max_dist=max_dist,
+                                            ratio=ratio)
+                   for i in range(desc.shape[0] - 1)]
+        return matching.MatchResult(*(torch.stack(f) for f in zip(*results)))
     K = desc.shape[1]
     best, second, idx, col_best = ck.mutual_nn_pairs(
         desc[:-1], desc[1:], valid[:-1], valid[1:])
