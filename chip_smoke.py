@@ -11,9 +11,15 @@ Phases, each fatal on failure:
   3. the batched path once with the launch counters zeroed just before:
      ``extract_batch`` + ``match_consecutive`` on a batch of frames at 640x480,
      K=1000, float32, the shipped weights; each of its kernels must have
-     launched;
+     launched, ``mutual_nn_pairs`` exactly once;
   4. each kernel against its plain PyTorch version on the tensors of that
-     run, and the whole path against the plain path on the same card;
+     run and at odd shapes; the two matcher kernels also on inputs full of
+     exact ties (duplicated columns, duplicated rows, valid all-zero rows,
+     prefix masks, all-valid masks), where the first index must win, at
+     P=31 and P=1, M=4096, N=1 and M=1, each with its launch's CTA count;
+     one call of each matcher wrapper under
+     ``torch.cuda.set_sync_debug_mode("error")``; the whole path against the
+     plain path on the same card;
   5. ``XFeatExtractor()`` on one 500x700 uint8 frame (resize, sub-pixel
      selection, coordinate rescale);
   6. the single-pair matcher path, counted: ``match_consecutive(fused=False)``
@@ -28,9 +34,11 @@ Phases, each fatal on failure:
      inside a step (``torch.cuda.set_sync_debug_mode``);
   8. CUDA-event timings of the forward, each kernel and its plain version,
      the top-k, a PyTorch yardstick call where one computes the same
-     function, the stages of one batch and the end-to-end frame rate; the
-     frame step per frame and its parts, its host wall time and its CUDA
-     kernel count (``torch.profiler``).
+     function, the stages of one batch (``match_consecutive`` both ways) and
+     the end-to-end frame rate; the matcher kernels' and their yardsticks'
+     device time alone, by CUDA-graph replay; the frame step per frame and
+     its parts, its host wall time and its CUDA kernel count
+     (``torch.profiler``).
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers, and as its last line
@@ -74,8 +82,8 @@ KERNEL_SOURCES = {
                         "xfeatslam_tpu/ops/pallas_kernels.py:84"),
 }
 # the kernels each path must launch
-BATCHED_KERNELS = ("detect_candidates", "bilinear_desc_sample",
-                   "mutual_nn_pairs")
+BATCHED_KERNELS = {"detect_candidates": None, "bilinear_desc_sample": None,
+                   "mutual_nn_pairs": 1}
 FRAME_STEP_KERNELS = ("detect_candidates", "bilinear_desc_sample")
 # the online frame step: TrackerConfig's XFeat defaults (slam/tracking.py)
 # and the local-map bucket
@@ -123,6 +131,32 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Device time of one call of ``fn`` in ms, with no host cost in it:
+    ``calls`` calls captured in a CUDA graph, replayed ``replays`` times
+    between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def bound_ms(nbytes, flops):
@@ -208,22 +242,46 @@ def compare_desc(ck, feats_flat, idx4, w4, label):
     return {"max_abs_err": err}
 
 
-def compare_mnn(ck, args, label):
+def max_err(k, p, where):
+    """Largest |k - p| over ``where`` (0 if it is empty)."""
+    return float((k - p).abs()[where].max()) if bool(where.any()) else 0.0
+
+
+def grid_note(ck, P, N):
+    ctas, rows = ck.matcher_grid(P, N)
+    return f"{ctas} CTAs of {rows} rows"
+
+
+def compare_mnn(ck, args, label, exact=False):
     """mutual_nn_pairs kernel vs plain: best column equal on >= 99.9% of
     valid rows, best distance within 1e-3 where they agree, column best
-    equal on >= 99.9% of valid columns."""
+    equal on >= 99.9% of valid columns; with ``exact``, idx equal on every
+    row and col_best on every column."""
     mk = ck.mutual_nn_pairs(*args)
     mp = ck.mutual_nn_pairs_plain(*args)
     va, vb = args[2], args[3]
-    idx_agree = float((mk[2] == mp[2])[va].float().mean())
-    col_agree = float((mk[3] == mp[3])[vb].float().mean())
-    same = va & (mk[2] == mp[2]) & torch.isfinite(mp[0])
-    err = float((mk[0] - mp[0]).abs()[same].max())
-    print(f"mnn [{label}]: idx agreement {idx_agree:.6f} on valid rows, column "
-          f"best agreement {col_agree:.6f}, best-distance max abs err {err:.3e}")
-    check(idx_agree >= 0.999, f"mnn [{label}]: best columns disagree")
-    check(col_agree >= 0.999, f"mnn [{label}]: column best rows disagree")
+    rows = torch.ones_like(va) if exact else va
+    cols = torch.ones_like(vb) if exact else vb
+
+    def agreement(k, p, where):
+        return float((k == p)[where].float().mean()) if where.any() else 1.0
+
+    idx_agree = agreement(mk[2], mp[2], rows)
+    col_agree = agreement(mk[3], mp[3], cols)
+    same = rows & (mk[2] == mp[2]) & torch.isfinite(mp[0])
+    err = max(max_err(mk[0], mp[0], same),
+              max_err(mk[1], mp[1], same & torch.isfinite(mp[1])))
+    inf_same = bool(all((torch.isinf(k) == torch.isinf(q)).all()
+                        for k, q in zip(mk[:2], mp[:2])))
+    need = 1.0 if exact else 0.999
+    print(f"mnn [{label}; {grid_note(ck, va.shape[0], va.shape[1])}]: idx "
+          f"agreement {idx_agree:.6f} on {'all' if exact else 'valid'} rows, "
+          f"column best agreement {col_agree:.6f}, distance max abs err "
+          f"{err:.3e}")
+    check(idx_agree >= need, f"mnn [{label}]: best columns disagree")
+    check(col_agree >= need, f"mnn [{label}]: column best rows disagree")
     check(err <= 1e-3, f"mnn [{label}]: distances differ by more than 1e-3")
+    check(inf_same, f"mnn [{label}]: rows without a valid column differ")
     return {"max_abs_err": err}
 
 
@@ -263,6 +321,82 @@ def odd_shape_checks(ck, detect, dev):
                 f"random {P}x{N}x{M}, one pair without valid columns")
 
 
+TIE_CASES = ("duplicate columns", "duplicate rows", "zero rows",
+             "prefix masks", "all valid")
+
+
+def tie_banks(rng, case, P, N, M):
+    """Descriptor banks of small multiples of 1/8: every similarity is exact
+    in float32 whatever the order of the sum, so equal similarities are
+    equal in every implementation, and ties are common. ``case`` plants
+    more: b's second half repeating its first (row ties across columns),
+    a's second half repeating its first (column-best ties across rows, in
+    other CTAs), a valid all-zero row in a and in b (all its similarities
+    0), masks that are prefixes (as select_keypoints leaves them), or all
+    valid."""
+    a = (rng.integers(-2, 3, (P, N, 64)) / 8).astype(np.float32)
+    b = (rng.integers(-2, 3, (P, M, 64)) / 8).astype(np.float32)
+    va = rng.uniform(size=(P, N)) > 0.2
+    vb = rng.uniform(size=(P, M)) > 0.2
+    if case == "duplicate columns":
+        h = M // 2
+        b[:, h:2 * h] = b[:, :h]
+    elif case == "duplicate rows":
+        h = N // 2
+        a[:, h:2 * h] = a[:, :h]
+    elif case == "zero rows":
+        a[:, N // 3] = 0
+        va[:, N // 3] = True
+        b[:, M // 3] = 0
+        vb[:, M // 3] = True
+    elif case == "prefix masks":
+        va = np.arange(N) < rng.integers(0, N + 1, (P, 1))
+        vb = np.arange(M) < rng.integers(0, M + 1, (P, 1))
+    elif case == "all valid":
+        va[:], vb[:] = True, True
+    return a, b, va, vb
+
+
+def matcher_checks(ck, dev, main_args):
+    """The two matcher kernels against their plain versions on exact ties
+    (the first index must win on every row and column) at the main path's
+    P=31 and at P=1, at M=4096, and at N=1 and M=1; then one call of each
+    wrapper under set_sync_debug_mode("error")."""
+    rng = np.random.default_rng(3)
+
+    def t(*xs):
+        return tuple(torch.tensor(x, device=dev) for x in xs)
+
+    for case in TIE_CASES:
+        for P in (31, 1):
+            compare_mnn(ck, t(*tie_banks(rng, case, P, K, K)),
+                        f"ties: {case}, P={P}, N=M={K}", exact=True)
+        a, b, _, vb = tie_banks(rng, case, 1, K, K)
+        compare_top2(ck, *t(a[0], b[0], vb[0]),
+                     f"ties: {case}, N=M={K}", exact=True)
+    for P, N, M in ((2, K, 4096), (3, 1, 1), (2, 1, K), (2, K, 1)):
+        for case in ("duplicate columns", "all valid"):
+            args = t(*tie_banks(rng, case, P, N, M))
+            compare_mnn(ck, args, f"ties: {case}, P={P}, N={N}, M={M}",
+                        exact=True)
+            compare_top2(ck, args[0][0], args[1][0], args[3][0],
+                         f"ties: {case}, N={N}, M={M}", exact=True)
+
+    a0, b0, vb0 = main_args[0][0], main_args[1][0], main_args[3][0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.mutual_nn_pairs(*main_args)
+        ck.similarity_top2(a0, b0, vb0)
+    except RuntimeError as e:
+        raise SmokeFailure(f"a matcher wrapper synchronized: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("matcher wrappers under set_sync_debug_mode('error'): no "
+          "synchronizing call")
+
+
 def path_counts(ck, label, expect):
     """Read the launch counts of the path just driven and check that each
     kernel of ``expect`` launched (``expect`` maps a name to an exact count
@@ -281,10 +415,11 @@ def path_counts(ck, label, expect):
     return counts
 
 
-def compare_top2(ck, a, b, vb, label):
+def compare_top2(ck, a, b, vb, label, exact=False):
     """similarity_top2 kernel vs plain: best column equal on >= 99.9% of
-    rows; s1 and s2 within 1e-6 where the best columns agree; rows without
-    a valid column exactly -inf with column 0."""
+    rows (every row with ``exact``); s1 and s2 within 1e-6 where the best
+    columns agree; rows without a valid column exactly -inf with column
+    0."""
     sk = ck.similarity_top2(a, b, vb)
     sp = ck.similarity_top2_plain(a, b, vb)
     agree = sk[2] == sp[2]
@@ -298,9 +433,11 @@ def compare_top2(ck, a, b, vb, label):
               f"top2 [{label}]: -inf rows differ")
     none = torch.isneginf(sp[0])
     check(bool((sk[2][none] == 0).all()), f"top2 [{label}]: empty rows' index")
-    print(f"top2 [{label}]: idx agreement {idx_agree:.6f}, similarity max abs "
-          f"err {err:.3e}, {int(none.sum())} rows without a valid column")
-    check(idx_agree >= 0.999, f"top2 [{label}]: best columns disagree")
+    print(f"top2 [{label}; {grid_note(ck, 1, a.shape[0])}]: idx agreement "
+          f"{idx_agree:.6f}, similarity max abs err {err:.3e}, "
+          f"{int(none.sum())} rows without a valid column")
+    check(idx_agree >= (1.0 if exact else 0.999),
+          f"top2 [{label}]: best columns disagree")
     check(err <= 1e-6, f"top2 [{label}]: similarities differ by more than 1e-6")
     return {"max_abs_err": err}
 
@@ -581,7 +718,7 @@ def run(batch: int):
     out, res = main_path()
     torch.cuda.synchronize()
     launches = path_counts(ck, "extract_batch + match_consecutive",
-                           {name: None for name in BATCHED_KERNELS})
+                           BATCHED_KERNELS)
     check(out["kpts"].shape == (batch, K, 2) and out["desc"].shape == (batch, K, 64),
           "main path output shapes")
     for k in ("kpts", "scores", "desc"):
@@ -592,6 +729,9 @@ def run(batch: int):
     print(f"main path: valid keypoints per frame min {int(nvalid.min())} "
           f"max {int(nvalid.max())}; matches per pair mean "
           f"{float(res.mask.sum(1).float().mean()):.1f}")
+    print(f"matcher grids: mutual_nn_pairs on the main path (P={batch - 1}, "
+          f"N=M={K}) {grid_note(ck, batch - 1, K)}; similarity_top2 at "
+          f"N=M={K} {grid_note(ck, 1, K)}")
 
     # ---- kernels against their plain versions, on the main path's tensors ----
     with torch.no_grad():
@@ -611,6 +751,7 @@ def run(batch: int):
     args = (desc[:-1], desc[1:], valid[:-1], valid[1:])
     report["mutual_nn_pairs"] = compare_mnn(ck, args, "main path")
     odd_shape_checks(ck, detect, dev)
+    matcher_checks(ck, dev, args)
 
     # ---- the whole path against the plain path on the same card ----
     with plain_kernels(ck):
@@ -685,9 +826,23 @@ def run(batch: int):
                                iters=10)
     times["match"] = cuda_ms(
         lambda: batched.match_consecutive(out["desc"], out["valid"]))
+    times["match_per_pair"] = cuda_ms(
+        lambda: batched.match_consecutive(out["desc"], out["valid"],
+                                          fused=False), iters=5, warmup=1)
     times["end_to_end"] = cuda_ms(main_path, iters=10)
     print("stage ms at batch %d: %s" % (batch, json.dumps(
         {k: round(v, 4) for k, v in times.items()})))
+    # the matchers' calls are short enough for host cost to show in the
+    # times above; these are device times alone
+    device = {
+        "mnn": graph_ms(lambda: ck.mutual_nn_pairs(*args)),
+        "mnn_library": graph_ms(lambda: torch.bmm(desc[:-1],
+                                                  desc[1:].transpose(1, 2))),
+        "top2": graph_ms(lambda: ck.similarity_top2(a0, b0, vb0)),
+        "top2_library": graph_ms(lambda: torch.mm(a0, b0.T)),
+    }
+    print("matcher device ms per call (CUDA-graph replay): " + json.dumps(
+        {k: round(v, 5) for k, v in device.items()}))
     print(f"end to end: {batch / times['end_to_end'] * 1e3:.1f} frames/s "
           f"({times['end_to_end']:.3f} ms per batch of {batch})")
 

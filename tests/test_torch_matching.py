@@ -23,6 +23,8 @@ from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from xfeatslam_tpu_torch.ops import matching as tm  # noqa: E402
 from xfeatslam_tpu_torch.parallel import batched as tb  # noqa: E402
 
+from chip_smoke import TIE_CASES, tie_banks  # noqa: E402
+
 
 def t(x):
     return torch.tensor(np.asarray(x))
@@ -252,6 +254,53 @@ def test_match_consecutive_per_pair_matches_jax(rng):
     np.testing.assert_array_equal(got.idx.numpy(), np.asarray(ref.idx))
     np.testing.assert_allclose(got.dist.numpy(), np.asarray(ref.dist),
                                atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# exact ties, the cases chip_smoke.py holds the CUDA matchers to: the first
+# column wins idx, the first valid row wins col_best
+
+
+def _tie_counts(a, b, va, vb):
+    """Rows whose best valid column is not unique, and valid columns whose
+    best valid row is not unique (float64: the similarities are exact)."""
+    sim = np.einsum("pnd,pmd->pnm", a.astype(np.float64), b.astype(np.float64))
+    sim = np.where(vb[:, None, :], sim, -np.inf)
+    rows = (sim == sim.max(2, keepdims=True)) & np.isfinite(sim)
+    simv = np.where(va[:, :, None], sim, -np.inf)
+    cols = (simv == simv.max(1, keepdims=True)) & np.isfinite(simv)
+    return int((rows.sum(2) > 1).sum()), int((cols.sum(1) > 1).sum())
+
+
+@pytest.mark.parametrize("case", TIE_CASES)
+def test_mutual_nn_pairs_ties_match_pallas(case):
+    a, b, va, vb = tie_banks(np.random.default_rng(7), case, 2, 48, 48)
+    row_ties, col_ties = _tie_counts(a, b, va, vb)
+    assert row_ties > 0 and col_ties > 0
+    ref = pk.mutual_nn_pairs(jnp.asarray(a), jnp.asarray(b), jnp.asarray(va),
+                             jnp.asarray(vb), interpret=True)
+    got = ck.mutual_nn_pairs(t(a), t(b), t(va), t(vb))
+    # every similarity is exact, so the distances are equal too
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("case", TIE_CASES)
+def test_best_two_distances_ties_match_pallas(case):
+    a, b, va, vb = (x[0] for x in tie_banks(np.random.default_rng(7), case,
+                                            1, 48, 40))
+    assert _tie_counts(a[None], b[None], va[None], vb[None])[0] > 0
+    ref = pk.xfeat_best_two_distances(jnp.asarray(a), jnp.asarray(b),
+                                      jnp.asarray(va), jnp.asarray(vb),
+                                      interpret=True)
+    got = ck.xfeat_best_two_distances(t(a), t(b), t(va), t(vb))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    _, s2, i1 = ck.similarity_top2(t(a), t(b), t(vb))
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(ref[2]))
+    if case == "duplicate columns":  # a tie at the best gives s2 = s1
+        s1 = ck.similarity_top2(t(a), t(b), t(vb))[0]
+        assert (s2 == s1).any()
 
 
 # ---------------------------------------------------------------------------

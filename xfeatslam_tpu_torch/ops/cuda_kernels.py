@@ -35,13 +35,16 @@ _SMEM_MAX = 227 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry point -> (library in csrc/, argument types; the stream comes last)
+# C entry point -> (library in csrc/, argument types; a kernel's stream
+# comes last)
 _ENTRY_POINTS = {
     "detect_candidates": ("detect_candidates",
                           [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
     "desc_sample": ("desc_sample", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "mnn_rows": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "mnn_pairs": ("mnn_pairs",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "similarity_top2": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "mnn_row_tile": ("mnn_pairs", [_I, _I]),  # host only, no stream
 }
 _entries: dict = {}
 
@@ -58,8 +61,11 @@ def _entry(fn: str):
     return f
 
 
-def _launch(fn: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
+def _launch(fn: str, device: int, *args) -> None:
+    """Call kernel entry ``fn`` on the current stream of CUDA ``device``."""
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # which costs more host time than some of these kernels take to run
+    stream = torch._C._cuda_getCurrentRawStream(device)
     err = _entry(fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: error {err}")
@@ -68,11 +74,11 @@ def _launch(fn: str, *args) -> None:
 def _on_cuda(*tensors) -> bool:
     """True if every tensor lies on a CUDA device, False if all lie on the
     CPU; anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+    if all(t.is_cuda for t in tensors) and len({t.get_device()
+                                                for t in tensors}) == 1:
         return True
+    if all(t.device.type == "cpu" for t in tensors):
+        return False
     raise ValueError(f"tensors must all lie on one CUDA device or all on the "
                      f"CPU, got {[str(t.device) for t in tensors]}")
 
@@ -136,9 +142,9 @@ def detect_candidates(logits, heatmap, threshold: float = 0.05,
     # the reliability positions' scale, rounded to float32 once, as JAX does
     scale_x = float(np.float32(W8 / (W - 1.0)))
     scale_y = float(np.float32(H8 / (H8 * 8 - 1.0)))
-    _launch("detect_candidates", _ptr(logits), _ptr(heatmap), _ptr(vals),
-            _ptr(aux), B, H8, W8, nc, S, threshold, softmax_temp, scale_x,
-            scale_y)
+    _launch("detect_candidates", logits.get_device(), _ptr(logits),
+            _ptr(heatmap), _ptr(vals), _ptr(aux), B, H8, W8, nc, S, threshold,
+            softmax_temp, scale_x, scale_y)
     detect_candidates.launches += 1
     return vals, aux
 
@@ -186,8 +192,8 @@ def bilinear_desc_sample(feats, idx4, w4):
     if feats.data_ptr() % 8:
         raise ValueError("feats: must be 8-byte aligned (read as float2)")
     out = torch.empty((B, K, 64), dtype=torch.float32, device=feats.device)
-    _launch("desc_sample", _ptr(feats), _ptr(idx4), _ptr(w4), _ptr(out), B,
-            NP, K)
+    _launch("desc_sample", feats.get_device(), _ptr(feats), _ptr(idx4),
+            _ptr(w4), _ptr(out), B, NP, K)
     bilinear_desc_sample.launches += 1
     return out
 
@@ -197,6 +203,31 @@ bilinear_desc_sample.launches = 0
 
 # ---------------------------------------------------------------------------
 # 3. mutual_nn_pairs
+
+
+# columns whose list fits a matcher CTA's shared memory (kMaxM in
+# csrc/mnn_pairs.cu)
+MATCHER_MAX_COLUMNS = 16384
+
+
+def _check_matcher_inputs(desc_a, desc_b, M):
+    for t, name in ((desc_a, "desc_a"), (desc_b, "desc_b")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned (rows are "
+                             "copied in 16-byte pieces)")
+    if M > MATCHER_MAX_COLUMNS:
+        raise ValueError(f"desc_b: {M} columns exceed the matcher kernel's "
+                         f"{MATCHER_MAX_COLUMNS} (its list of valid columns "
+                         "lives in shared memory)")
+
+
+def matcher_grid(P: int, N: int) -> tuple:
+    """(CTAs, rows per CTA) of a matcher launch on P pairs of N rows, on the
+    current CUDA device: 64 rows per CTA of 256 threads, or 16 rows per CTA
+    of 512 threads (eight slices of 32 columns) when 64-row CTAs would give
+    under two CTAs per SM."""
+    rows = _entry("mnn_row_tile")(P, N)
+    return P * -(-N // rows), rows
 
 
 def _distances(s1, s2):
@@ -224,8 +255,9 @@ def mutual_nn_pairs(desc_a, desc_b, valid_a, valid_b):
     Returns best and second (P, N) distances (2-2s)*512 over valid columns
     (inf where a row has none), idx (P, N) int32 the first best column, and
     col_best (P, M) int32 the first best valid row of each valid column (0
-    for an invalid column). Two kernel launches: rows of a against b, then
-    rows of b against a."""
+    for an invalid column). One kernel launch, which scores only the valid
+    columns and takes the row top-2 and the column best from the same
+    similarities."""
     if not _on_cuda(desc_a, desc_b, valid_a, valid_b):
         return mutual_nn_pairs_plain(desc_a, desc_b, valid_a, valid_b)
     P, N, _ = desc_a.shape
@@ -234,21 +266,19 @@ def mutual_nn_pairs(desc_a, desc_b, valid_a, valid_b):
     _check(desc_b, "desc_b", torch.float32, (P, M, 64))
     _check(valid_a, "valid_a", torch.bool, (P, N))
     _check(valid_b, "valid_b", torch.bool, (P, M))
+    _check_matcher_inputs(desc_a, desc_b, M)
     dev = desc_a.device
-
-    def rows(a, b, vb, n):
-        s1 = torch.empty((P, n), dtype=torch.float32, device=dev)
-        s2 = torch.empty_like(s1)
-        i1 = torch.empty((P, n), dtype=torch.int32, device=dev)
-        _launch("mnn_rows", _ptr(a), _ptr(b), _ptr(vb), _ptr(s1), _ptr(s2),
-                _ptr(i1), P, n, b.shape[1])
-        mutual_nn_pairs.launches += 1
-        return s1, s2, i1
-
-    s1, s2, idx = rows(desc_a, desc_b, valid_b, N)
-    _, _, col = rows(desc_b, desc_a, valid_a, M)
-    best, second = _distances(s1, s2)
-    return best, second, idx, torch.where(valid_b, col, 0)
+    best = torch.empty((P, N), dtype=torch.float32, device=dev)
+    second = torch.empty_like(best)
+    idx = torch.empty((P, N), dtype=torch.int32, device=dev)
+    col_best = torch.empty((P, M), dtype=torch.int32, device=dev)
+    # the kernel's column keys (P*M) and its finished-CTA count per pair (P)
+    scratch = torch.zeros(P * M + P, dtype=torch.int64, device=dev)
+    _launch("mnn_pairs", desc_a.get_device(), _ptr(desc_a), _ptr(desc_b),
+            _ptr(valid_a), _ptr(valid_b), _ptr(best), _ptr(second), _ptr(idx),
+            _ptr(col_best), _ptr(scratch), P, N, M)
+    mutual_nn_pairs.launches += 1
+    return best, second, idx, col_best
 
 
 mutual_nn_pairs.launches = 0
@@ -278,7 +308,10 @@ def similarity_top2(desc_a, desc_b, valid_b=None):
     Returns s1, s2 (N,) float32 similarities and i1 (N,) int32: ties go to
     the first column, s2 excludes only column i1 (a tie gives s2 = s1), and
     a row without a valid column gets s1 = s2 = -inf, i1 = 0. Unlike the
-    TPU kernel, any N is taken (no padding to a row tile)."""
+    TPU kernel, any N is taken (no padding to a row tile). One launch of
+    the ``mutual_nn_pairs`` kernel without its column pass, over the valid
+    columns only, in CTAs of 16 rows when 64-row CTAs would leave the card
+    half idle."""
     if valid_b is None:
         valid_b = torch.ones(desc_b.shape[0], dtype=torch.bool,
                              device=desc_b.device)
@@ -288,11 +321,12 @@ def similarity_top2(desc_a, desc_b, valid_b=None):
     _check(desc_a, "desc_a", torch.float32, (N, 64))
     _check(desc_b, "desc_b", torch.float32, (M, 64))
     _check(valid_b, "valid_b", torch.bool, (M,))
+    _check_matcher_inputs(desc_a, desc_b, M)
     s1 = torch.empty(N, dtype=torch.float32, device=desc_a.device)
     s2 = torch.empty_like(s1)
     i1 = torch.empty(N, dtype=torch.int32, device=desc_a.device)
-    _launch("similarity_top2", _ptr(desc_a), _ptr(desc_b), _ptr(valid_b),
-            _ptr(s1), _ptr(s2), _ptr(i1), N, M)
+    _launch("similarity_top2", desc_a.get_device(), _ptr(desc_a),
+            _ptr(desc_b), _ptr(valid_b), _ptr(s1), _ptr(s2), _ptr(i1), N, M)
     similarity_top2.launches += 1
     return s1, s2, i1
 

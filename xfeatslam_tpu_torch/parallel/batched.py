@@ -34,8 +34,8 @@ def match_consecutive(desc, valid, max_dist=matching.TH_LOW * 6, ratio=0.95,
     """MNN-match frames (i, i+1) for all i: desc (B,K,64), valid (B,K) ->
     MatchResult of (B-1,K) tensors.
 
-    None and True run the pair-batched kernel (``mutual_nn_pairs``, two
-    launches for all pairs); False runs ``matching.match_mutual_nn`` pair
+    None and True run the pair-batched kernel (``mutual_nn_pairs``, one
+    launch for all pairs); False runs ``matching.match_mutual_nn`` pair
     by pair, the JAX package's vmapped form, which on CUDA tensors takes
     the single-pair kernel (two launches per pair)."""
     if fused is False:
