@@ -10,12 +10,21 @@ Phases, each fatal on failure:
   2. build every CUDA kernel of ``xfeatslam_tpu_torch/csrc`` with nvcc;
   3. the batched path once with the launch counters zeroed just before:
      ``extract_batch`` + ``match_consecutive`` on a batch of frames at 640x480,
-     K=1000, float32, the shipped weights; each of its kernels must have
-     launched, ``mutual_nn_pairs`` exactly once;
+     K=1000, float32, the shipped weights; each of its kernels
+     (``detect_candidates``, ``keypoint_desc``, ``mutual_nn_pairs``) must
+     have launched exactly once;
   4. each kernel against its plain PyTorch version on the tensors of that
-     run and at odd shapes; the two matcher kernels also on inputs full of
-     exact ties (duplicated columns, duplicated rows, valid all-zero rows,
-     prefix masks, all-valid masks), where the first index must win, at
+     run and at odd shapes: ``detect_candidates`` bit for bit on every slot,
+     also on frame 0 alone (batch 1), at a ragged strip, a width that is no
+     multiple of the column split and on a lattice of 4-9 survivors per
+     cell, each with its launch's grid; ``keypoint_desc`` with ``subpixel``
+     both ways; the descriptors-at-keypoints path
+     (``detect.sample_descriptors``, ``bilinear_desc_sample``), counted; one
+     call of the extraction wrappers under
+     ``torch.cuda.set_sync_debug_mode("error")``; the two matcher kernels
+     also on inputs full of exact ties (duplicated columns, duplicated
+     rows, valid all-zero rows, prefix masks, all-valid masks), where the
+     first index must win, at
      P=31 and P=1, M=4096, N=1 and M=1, each with its launch's CTA count;
      one call of each matcher wrapper under
      ``torch.cuda.set_sync_debug_mode("error")``; the whole path against the
@@ -32,13 +41,13 @@ Phases, each fatal on failure:
      frames 1-5, counted per frame, held to the ground truth (< 1 cm) and to
      the plain-kernel path; the monocular configuration once; no host sync
      inside a step (``torch.cuda.set_sync_debug_mode``);
-  8. CUDA-event timings of the forward, each kernel and its plain version,
-     the top-k, a PyTorch yardstick call where one computes the same
-     function, the stages of one batch (``match_consecutive`` both ways) and
-     the end-to-end frame rate; the matcher kernels' and their yardsticks'
-     device time alone, by CUDA-graph replay; the frame step per frame and
-     its parts, its host wall time and its CUDA kernel count
-     (``torch.profiler``).
+  8. CUDA-event timings of the forward, each kernel and its plain version
+     (detect also at batch 1), the top-k, a PyTorch yardstick call where one
+     computes the same function, the stages of one batch
+     (``match_consecutive`` both ways) and the end-to-end frame rate; the
+     kernels', the top-k's and the matchers' yardsticks' device time alone,
+     by CUDA-graph replay; the frame step per frame and its parts, its
+     host wall time and its CUDA kernel count (``torch.profiler``).
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers, and as its last line
@@ -76,15 +85,17 @@ KERNEL_SOURCES = {
                           "xfeatslam_tpu/ops/pallas_kernels.py:375"),
     "bilinear_desc_sample": ("xfeatslam_tpu_torch/csrc/desc_sample.cu",
                              "xfeatslam_tpu/ops/pallas_kernels.py:505"),
+    "keypoint_desc": ("xfeatslam_tpu_torch/csrc/desc_sample.cu",
+                      "xfeatslam_tpu/ops/pallas_kernels.py:505"),
     "mutual_nn_pairs": ("xfeatslam_tpu_torch/csrc/mnn_pairs.cu",
                         "xfeatslam_tpu/ops/pallas_kernels.py:596"),
     "similarity_top2": ("xfeatslam_tpu_torch/csrc/mnn_pairs.cu",
                         "xfeatslam_tpu/ops/pallas_kernels.py:84"),
 }
 # the kernels each path must launch
-BATCHED_KERNELS = {"detect_candidates": None, "bilinear_desc_sample": None,
+BATCHED_KERNELS = {"detect_candidates": 1, "keypoint_desc": 1,
                    "mutual_nn_pairs": 1}
-FRAME_STEP_KERNELS = ("detect_candidates", "bilinear_desc_sample")
+FRAME_STEP_KERNELS = ("detect_candidates", "keypoint_desc")
 # the online frame step: TrackerConfig's XFeat defaults (slam/tracking.py)
 # and the local-map bucket
 M1, M2 = 1000, 4096
@@ -208,25 +219,69 @@ def card_line():
     return smi.stdout.strip().splitlines()[0]
 
 
+def detect_note(ck, B, H8, W8):
+    ctas, S, parts = ck.detect_grid(
+        B, H8, W8, torch.cuda.get_device_properties(0).multi_processor_count)
+    return f"{ctas} CTAs of {S} cell rows x {-(-W8 // parts)} cell columns"
+
+
 def compare_detect(ck, logits, heat, nc, label):
-    """detect_candidates kernel vs plain: same survivor mask and channels
-    on >= 99.99% of slots, vals within 1e-6 where both are survivors."""
+    """detect_candidates kernel vs plain on every slot: vals equal, aux
+    equal (channel and both quantized offsets), so the survivor mask too;
+    the whole tensors must be bit-identical."""
     vk, ak = ck.detect_candidates(logits, heat, nc=nc)
     vp, ap = ck.detect_candidates_plain(logits, heat, nc=nc)
-    sk, sp = vk > 0, vp > 0
-    both = sk & sp
-    check(bool(both.any()), f"detect [{label}]: no survivor to compare")
+    sk, sp = vk > -1, vp > -1
+    check(bool(sp.any()), f"detect [{label}]: no survivor to compare")
     mask_agree = float((sk == sp).float().mean())
-    err = float((vk - vp).abs()[both].max())
-    ch_agree = float(((ak[both].int() >> 18) == (ap[both].int() >> 18))
-                     .float().mean())
-    print(f"detect [{label}]: survivor mask agreement {mask_agree:.6f}, vals "
-          f"max abs err {err:.3e}, channel agreement {ch_agree:.6f} over "
-          f"{int(both.sum())} survivors")
-    check(mask_agree >= 0.9999, f"detect [{label}]: survivor masks disagree")
-    check(err <= 1e-6, f"detect [{label}]: vals differ by more than 1e-6")
-    check(ch_agree >= 0.9999, f"detect [{label}]: candidate channels disagree")
+    err = float((vk - vp).abs().max())
+    aux_agree = float((ak == ap).float().mean())
+    per_cell = (vp > -1).sum(2).max()
+    print(f"detect [{label}; {detect_note(ck, *logits.shape[:3])}]: on all "
+          f"{vk.numel()} slots survivor mask agreement {mask_agree:.6f}, vals "
+          f"max abs err {err:.3e}, aux agreement {aux_agree:.6f}; "
+          f"{int(sp.sum())} survivors, at most {int(per_cell)} in a cell")
+    check(torch.equal(vk, vp) and torch.equal(ak, ap),
+          f"detect [{label}]: candidates differ from the plain version")
     return {"max_abs_err": err}
+
+
+def compare_kpdesc(ck, feats_flat, vals, aux, k, subpixel, label):
+    """keypoint_desc kernel vs plain on the top-k of the candidates ``vals``:
+    kpts within 1e-6, desc within 1e-5 on valid rows, invalid rows exactly
+    zero."""
+    B, H8, _, W8 = vals.shape
+    scores, sel = torch.topk(vals.reshape(B, -1), k, dim=1)
+    kk, dk = ck.keypoint_desc(feats_flat, scores, sel, aux, W8, subpixel)
+    kp, dp = ck.keypoint_desc_plain(feats_flat, scores, sel, aux, W8, subpixel)
+    v = scores > 0
+    check(bool(v.any()), f"kpdesc [{label}]: no valid keypoint")
+    kerr = float((kk - kp).abs().max())
+    derr = float((dk - dp).abs()[v].max())
+    print(f"kpdesc [{label}, subpixel={subpixel}]: kpts max abs err "
+          f"{kerr:.3e} ({'bit-identical' if torch.equal(kk, kp) else 'not bit-identical'}), "
+          f"desc max abs err {derr:.3e} over {int(v.sum())} valid of "
+          f"{v.numel()} rows")
+    check(kerr <= 1e-6, f"kpdesc [{label}]: kpts differ by more than 1e-6")
+    check(derr <= 1e-5, f"kpdesc [{label}]: desc differ by more than 1e-5")
+    check(bool((dk[~v] == 0).all()), f"kpdesc [{label}]: invalid rows not zero")
+    return {"max_abs_err": max(kerr, derr)}
+
+
+def lattice_inputs(rng, B, H8, W8):
+    """Peaks on a lattice of pitch 3 px (each the 5x5 maximum), so cells
+    hold 4-9 survivors: arg-max rounds past 4 and the rank fill both run.
+    Every other cell's peaks have equal logits (exact score ties, ordered
+    by aux), the rest jittered ones."""
+    logits = np.full((B, H8, W8, 65), -8.0, np.float32)
+    y, x = np.mgrid[0:H8 * 8:3, 0:W8 * 8:3]
+    cy, cx, ch = y // 8, x // 8, (y % 8) * 8 + x % 8
+    peak = np.where((cy + cx) % 2 == 0, 4.0,
+                    4.0 + rng.uniform(0, 1, (B,) + y.shape)).astype(np.float32)
+    for b in range(B):
+        logits[b, cy, cx, ch] = peak[b]
+    heat = rng.uniform(0.2, 1.0, (B, H8, W8, 1)).astype(np.float32)
+    return logits, heat
 
 
 def compare_desc(ck, feats_flat, idx4, w4, label):
@@ -287,19 +342,30 @@ def compare_mnn(ck, args, label, exact=False):
 
 def odd_shape_checks(ck, detect, dev):
     """The kernels against their plain versions off the main path's shapes:
-    dense random survivors, a ragged last detect strip, nc=5, keypoints out
-    of bounds, K and N != M not multiples of any tile, a pair with no valid
-    column."""
+    dense random survivors, a ragged last detect strip, nc=5, batch 1, a
+    width that is not a multiple of the column split, a lattice of
+    survivors (4-9 per cell), keypoints out of bounds, K and N != M not
+    multiples of any tile, a pair with no valid column."""
     rng = np.random.default_rng(1)
 
     def t(a):
         return torch.tensor(a, device=dev)
 
-    B, H8, W8 = 2, 13, 120  # 960 px wide: 2-row strips, the last one ragged
-    logits = t((rng.standard_normal((B, H8, W8, 65)) * 3).astype(np.float32))
-    heat = t(rng.uniform(size=(B, H8, W8, 1)).astype(np.float32))
-    for nc in (5, 9):
-        compare_detect(ck, logits, heat, nc, f"random {B}x{H8}x{W8}, nc={nc}")
+    # ragged last strips and column parts in each tile size (2x8 cells up
+    # to batch 6 here, 16x16 at 16x60x83)
+    for B, H8, W8 in ((2, 13, 120), (1, 13, 83), (1, 60, 80), (16, 60, 83)):
+        logits = t((rng.standard_normal((B, H8, W8, 65)) * 3).astype(np.float32))
+        heat = t(rng.uniform(size=(B, H8, W8, 1)).astype(np.float32))
+        for nc in ((5, 9) if B == 2 else (9,)):
+            compare_detect(ck, logits, heat, nc, f"random {B}x{H8}x{W8}, nc={nc}")
+        feats = t(rng.standard_normal((B, H8 * W8, 64)).astype(np.float32))
+        vals, aux = ck.detect_candidates(logits, heat)
+        for subpixel in (False, True):
+            compare_kpdesc(ck, feats, vals, aux, 1000, subpixel,
+                           f"random {B}x{H8}x{W8}, K=1000")
+    for B, H8, W8 in ((32, 60, 80), (1, 13, 83)):
+        logits, heat = (t(a) for a in lattice_inputs(rng, B, H8, W8))
+        compare_detect(ck, logits, heat, 9, f"lattice {B}x{H8}x{W8}")
 
     Kq = 37
     kpts = np.stack([rng.uniform(-3, W8 * 8 + 2, (B, Kq)),
@@ -395,6 +461,24 @@ def matcher_checks(ck, dev, main_args):
     torch.cuda.synchronize()
     print("matcher wrappers under set_sync_debug_mode('error'): no "
           "synchronizing call")
+
+
+def extract_sync_check(ck, logits, heat, feats_flat, vals, aux):
+    """One call of each extraction wrapper (and the top-k between them)
+    under set_sync_debug_mode("error")."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.detect_candidates(logits, heat)
+        scores, sel = torch.topk(vals.reshape(vals.shape[0], -1), K, dim=1)
+        ck.keypoint_desc(feats_flat, scores, sel, aux, aux.shape[3], True)
+    except RuntimeError as e:
+        raise SmokeFailure(f"an extraction wrapper synchronized: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("detect_candidates, torch.topk and keypoint_desc under "
+          "set_sync_debug_mode('error'): no synchronizing call")
 
 
 def path_counts(ck, label, expect):
@@ -729,6 +813,9 @@ def run(batch: int):
     print(f"main path: valid keypoints per frame min {int(nvalid.min())} "
           f"max {int(nvalid.max())}; matches per pair mean "
           f"{float(res.mask.sum(1).float().mean()):.1f}")
+    print(f"detect grids: batch {batch} "
+          f"{detect_note(ck, batch, H // 8, W // 8)}; batch 1 "
+          f"{detect_note(ck, 1, H // 8, W // 8)}")
     print(f"matcher grids: mutual_nn_pairs on the main path (P={batch - 1}, "
           f"N=M={K}) {grid_note(ck, batch - 1, K)}; similarity_top2 at "
           f"N=M={K} {grid_note(ck, 1, K)}")
@@ -743,10 +830,26 @@ def run(batch: int):
     report = {
         "detect_candidates": compare_detect(ck, logits, heat, 9, "main path"),
     }
+    l1, h1 = logits[:1].contiguous(), heat[:1].contiguous()
+    compare_detect(ck, l1, h1, 9, "main path's frame 0, batch 1")
     vk, ak = ck.detect_candidates(logits, heat)
+    report["keypoint_desc"] = {"max_abs_err": max(
+        compare_kpdesc(ck, feats_flat, vk, ak, K, sp, "main path")["max_abs_err"]
+        for sp in (False, True))}
     idx4, w4 = detect.desc_taps(out["kpts"], out["valid"], H8, W8)
     report["bilinear_desc_sample"] = compare_desc(ck, feats_flat, idx4, w4,
                                                   "main path")
+    # the descriptors-at-keypoints path (bilinear_desc_sample), counted
+    ck.reset_launch_counts()
+    d_s = detect.sample_descriptors(feats, out["kpts"], out["valid"])
+    launches["bilinear_desc_sample"] = path_counts(
+        ck, "sample_descriptors", {"bilinear_desc_sample": 1})[
+            "bilinear_desc_sample"]
+    err = float((d_s - out["desc"]).abs().max())
+    print(f"sample_descriptors at the main path's keypoints vs its "
+          f"descriptors: max abs err {err:.3e}")
+    check(err <= 1e-5, "sample_descriptors disagrees with select_keypoints")
+    extract_sync_check(ck, l1, h1, feats_flat[:1], vk[:1], ak[:1])
     desc, valid = out["desc"], out["valid"]
     args = (desc[:-1], desc[1:], valid[:-1], valid[1:])
     report["mutual_nn_pairs"] = compare_mnn(ck, args, "main path")
@@ -802,10 +905,13 @@ def run(batch: int):
     times = {}
     times["forward"] = cuda_ms(lambda: model(images))
     times["detect"] = cuda_ms(lambda: ck.detect_candidates(logits, heat))
+    times["detect_b1"] = cuda_ms(lambda: ck.detect_candidates(l1, h1))
     times["detect_plain"] = cuda_ms(lambda: ck.detect_candidates_plain(logits, heat))
-    times["topk_decode"] = cuda_ms(lambda: detect._candidates_topk(vk, ak, K, W8))
-    times["desc_taps"] = cuda_ms(lambda: detect.desc_taps(out["kpts"], out["valid"],
-                                                          H8, W8))
+    times["topk"] = cuda_ms(lambda: torch.topk(vk.reshape(B, -1), K, dim=1))
+    scores_k, sel_k = torch.topk(vk.reshape(B, -1), K, dim=1)
+    kd_args = (feats_flat, scores_k, sel_k, ak, W8, False)
+    times["kpdesc"] = cuda_ms(lambda: ck.keypoint_desc(*kd_args))
+    times["kpdesc_plain"] = cuda_ms(lambda: ck.keypoint_desc_plain(*kd_args))
     times["desc"] = cuda_ms(lambda: ck.bilinear_desc_sample(feats_flat, idx4, w4))
     times["desc_plain"] = cuda_ms(
         lambda: ck.bilinear_desc_sample_plain(feats_flat, idx4, w4))
@@ -832,16 +938,21 @@ def run(batch: int):
     times["end_to_end"] = cuda_ms(main_path, iters=10)
     print("stage ms at batch %d: %s" % (batch, json.dumps(
         {k: round(v, 4) for k, v in times.items()})))
-    # the matchers' calls are short enough for host cost to show in the
+    # the kernels' calls are short enough for host cost to show in the
     # times above; these are device times alone
     device = {
+        "detect": graph_ms(lambda: ck.detect_candidates(logits, heat)),
+        "detect_b1": graph_ms(lambda: ck.detect_candidates(l1, h1)),
+        "topk": graph_ms(lambda: torch.topk(vk.reshape(B, -1), K, dim=1)),
+        "kpdesc": graph_ms(lambda: ck.keypoint_desc(*kd_args)),
+        "desc": graph_ms(lambda: ck.bilinear_desc_sample(feats_flat, idx4, w4)),
         "mnn": graph_ms(lambda: ck.mutual_nn_pairs(*args)),
         "mnn_library": graph_ms(lambda: torch.bmm(desc[:-1],
                                                   desc[1:].transpose(1, 2))),
         "top2": graph_ms(lambda: ck.similarity_top2(a0, b0, vb0)),
         "top2_library": graph_ms(lambda: torch.mm(a0, b0.T)),
     }
-    print("matcher device ms per call (CUDA-graph replay): " + json.dumps(
+    print("kernel device ms per call (CUDA-graph replay): " + json.dumps(
         {k: round(v, 5) for k, v in device.items()}))
     print(f"end to end: {batch / times['end_to_end'] * 1e3:.1f} frames/s "
           f"({times['end_to_end']:.3f} ms per batch of {batch})")
@@ -858,6 +969,11 @@ def run(batch: int):
         "bilinear_desc_sample": bound_ms(
             touched * 64 * 4 + (idx4.numel() + w4.numel() + B * K * 64) * 4,
             int(nz.sum()) * 64 * 4 + B * K * 64 * 3),
+        # the touched grid rows, sel (int64), the gathered aux, the scores,
+        # the kpts and desc writes; the same sampling work
+        "keypoint_desc": bound_ms(
+            touched * 64 * 4 + B * K * (8 + 4 + 4 + 2 * 4 + 64 * 4),
+            int(nz.sum()) * 64 * 4 + B * K * 64 * 3),
         # one similarity matrix over the valid columns gives both passes
         "mutual_nn_pairs": bound_ms(
             2 * P * K * 64 * 4 + 2 * P * K + 4 * P * K * 4,
@@ -869,6 +985,7 @@ def run(batch: int):
     }
     timed = {"detect_candidates": ("detect", "detect_plain", None),
              "bilinear_desc_sample": ("desc", "desc_plain", "desc_library"),
+             "keypoint_desc": ("kpdesc", "kpdesc_plain", None),
              "mutual_nn_pairs": ("mnn", "mnn_plain", "mnn_library"),
              "similarity_top2": ("top2", "top2_plain", "top2_library")}
     rows_out = []

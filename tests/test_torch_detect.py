@@ -204,6 +204,88 @@ def test_bilinear_desc_sample_matches_pallas(rng):
     np.testing.assert_allclose(got[valid], d[valid], atol=2e-6)
 
 
+# ---- (f) the fused descriptor stage's plain version vs the JAX chain -------
+
+def border_detect_inputs(rng, B=2, H8=12, W8=16):
+    """Sparse peaks plus peaks on the image's top row and left column, whose
+    bilinear taps leave the descriptor grid."""
+    logits, heat = sparse_detect_inputs(rng, B, H8, W8)
+    logits[:, 0, 1::3, 2] = 9.0   # pixel row 0
+    logits[:, 2::3, 0, 24] = 9.0  # pixel column 0
+    return logits, heat
+
+
+@pytest.mark.parametrize("subpixel", [False, True])
+def test_keypoint_desc_plain_matches_jax_chain(rng, subpixel):
+    B, H8, W8 = 2, 12, 16
+    logits, heat = border_detect_inputs(rng, B, H8, W8)
+    feats = rng.standard_normal((B, H8 * W8, 64)).astype(np.float32)
+    vals, aux = (np.asarray(a) for a in pk.detect_candidates(
+        jnp.asarray(logits), jnp.asarray(heat), interpret=True))
+    npos = int((vals > 0).sum(axis=(1, 2, 3)).min())
+    # K = npos: every row valid, so the whole tensors compare (tie order among
+    # equal scores is not pinned across the JAX merge seam); 2*npos adds
+    # invalid rows, compared where valid and held to zero elsewhere
+    for K in (npos, 2 * npos):
+        sj, ij, oj = jd._candidates_topk(jnp.asarray(vals), jnp.asarray(aux),
+                                         K, W8)
+        W = W8 * 8
+        kj = jnp.stack([(ij % W).astype(jnp.float32),
+                        (ij // W).astype(jnp.float32)], -1)
+        if subpixel:
+            kj = kj + oj
+        vj = sj > 0.0
+        dj = np.asarray(jd._desc_sample_pallas(
+            jnp.asarray(feats.reshape(B, H8, W8, 64)), kj, vj, H8, W8))
+        kj, vj = np.asarray(kj), np.asarray(vj)
+        scores, sel = torch.topk(t(vals).reshape(B, -1), K, dim=1)
+        kt, dt = (a.numpy() for a in ck.keypoint_desc_plain(
+            t(feats), scores, sel, t(aux), W8, subpixel))
+        vt = scores.numpy() > 0.0
+        np.testing.assert_array_equal(vt, vj)
+        assert vt.all() == (K == npos)
+        np.testing.assert_allclose(kt[vt], kj[vt], atol=1e-6)
+        np.testing.assert_allclose(dt[vt], dj[vt], atol=2e-6)
+        assert not dt[~vt].any()
+    # some keypoints' taps leave the grid (position < 0 on either axis)
+    assert (kt[vt] < 4.0).any()
+
+
+def test_select_keypoints_equals_its_unfused_chain(rng):
+    """select_keypoints' one-call descriptor stage gives what detect ->
+    topk -> decode -> desc_taps -> bilinear_desc_sample gives."""
+    B, H8, W8, K = 2, 12, 16, 120
+    logits, heat = border_detect_inputs(rng, B, H8, W8)
+    feats = t(rng.standard_normal((B, H8, W8, 64)).astype(np.float32))
+    out = td.select_keypoints(feats, t(logits), t(heat), K, subpixel=True)
+    vals, aux = ck.detect_candidates(t(logits), t(heat))
+    scores, sel = torch.topk(vals.reshape(B, -1), K, dim=1)
+    kpts, off = td.decode_candidates(sel, aux, W8)
+    kpts = kpts + off
+    desc = td.sample_descriptors(feats, kpts, scores > 0)
+    assert torch.equal(out["kpts"], kpts) and torch.equal(out["desc"], desc)
+    assert torch.equal(out["valid"], scores > 0)
+
+
+# ---- (g) the detect kernel's grid ------------------------------------------
+
+@pytest.mark.parametrize("B", [1, 32])
+@pytest.mark.parametrize("H8,W8", [(60, 80), (13, 120), (13, 83)])
+def test_detect_grid_covers_every_cell_once(B, H8, W8):
+    ctas, S, parts = ck.detect_grid(B, H8, W8)
+    CW = -(-W8 // parts)
+    strips = -(-H8 // S)
+    assert ctas == B * strips * parts
+    hits = np.zeros((B, H8, W8), np.int64)
+    for b in range(B):  # blockIdx.y
+        for i in range(strips * parts):  # blockIdx.x
+            s, p = divmod(i, parts)
+            hits[b, s * S:min(s * S + S, H8), p * CW:min(p * CW + CW, W8)] += 1
+    assert (hits == 1).all()
+    if B == 1 and (H8, W8) == (60, 80):
+        assert ctas >= 132  # the frame step's shape: a CTA for every SM
+
+
 def test_cpu_calls_launch_no_kernel(rng):
     ck.reset_launch_counts()
     logits, heat = random_detect_inputs(rng, 1, 8, 8)
@@ -211,5 +293,6 @@ def test_cpu_calls_launch_no_kernel(rng):
     td.select_keypoints(t(feats), t(logits), t(heat), 20)
     assert ck.launch_counts() == {"detect_candidates": 0,
                                   "bilinear_desc_sample": 0,
+                                  "keypoint_desc": 0,
                                   "mutual_nn_pairs": 0,
                                   "similarity_top2": 0}

@@ -24,9 +24,11 @@ KERNELS = ("detect_candidates", "desc_sample", "mnn_pairs")
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
-# detect_candidates must not contract its position/weight arithmetic into
-# FMAs: that moves floor() decisions and quantization steps (see the file).
-_EXTRA_FLAGS = {"detect_candidates": ["--fmad=false"]}
+# detect_candidates and desc_sample must not contract their position and
+# weight arithmetic into FMAs: that moves floor() decisions and
+# quantization steps (see the files).
+_EXTRA_FLAGS = {"detect_candidates": ["--fmad=false"],
+                "desc_sample": ["--fmad=false"]}
 
 _loaded: dict = {}
 _lock = threading.Lock()

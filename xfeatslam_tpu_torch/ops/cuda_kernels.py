@@ -12,6 +12,8 @@ wrapper counts its kernel launches in a plain int attribute,
 Kernels:
   detect_candidates     csrc/detect_candidates.cu  (pallas_kernels.py:373)
   bilinear_desc_sample  csrc/desc_sample.cu        (pallas_kernels.py:504)
+  keypoint_desc         csrc/desc_sample.cu        (the same kernel, fed by
+                        the decode and taps of detect.py:462-503)
   mutual_nn_pairs       csrc/mnn_pairs.cu          (pallas_kernels.py:595)
   similarity_top2       csrc/mnn_pairs.cu          (pallas_kernels.py:84)
 """
@@ -28,9 +30,11 @@ from .. import _build
 # Per-cell candidate slots: 5x5 NMS forces >= 3 px spacing, so an 8x8 cell
 # holds at most ceil(8/3)^2 = 9 distinct-score survivors.
 NC_CAND = 9
-# shared-memory budget of one detect CTA: two CTAs fit on an SM at 640 px
-_DETECT_SMEM = 100 * 1024
 _SMEM_MAX = 227 * 1024
+# detect tiles (cell rows, cell columns) per CTA, the largest first: the
+# fastest of those timed by extraction_timing.py --tiles at batch 32 and 256
+# (16x16) and at batch 1 (2x8, 300 CTAs); see PERF.md
+_DETECT_TILES = ((16, 16), (8, 16), (2, 8))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,8 +43,12 @@ _F = ctypes.c_float
 # comes last)
 _ENTRY_POINTS = {
     "detect_candidates": ("detect_candidates",
-                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P]),
+                          [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                           _F, _F, _P]),
+    "detect_smem_bytes": ("detect_candidates", [_I, _I, _I]),  # host only
     "desc_sample": ("desc_sample", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "keypoint_desc": ("desc_sample", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _F, _F, _P]),
     "mnn_pairs": ("mnn_pairs",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "similarity_top2": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
@@ -97,6 +105,17 @@ def _ptr(t) -> int:
     return t.data_ptr()
 
 
+_sm_counts: dict = {}
+
+
+def _sm_count(device: int) -> int:
+    n = _sm_counts.get(device)
+    if n is None:
+        n = _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 # ---------------------------------------------------------------------------
 # 1. detect_candidates
 
@@ -109,6 +128,22 @@ def detect_candidates_plain(logits, heatmap, threshold: float = 0.05,
     ranked, p = detect.ranked_score_cells(logits, heatmap, threshold,
                                           softmax_temp)
     return detect.cell_candidates(ranked, detect.packed_aux_cells(p), nc)
+
+
+def detect_grid(B: int, H8: int, W8: int, sms: int = 132) -> tuple:
+    """(CTAs, cell rows per CTA, column parts) of a detect launch on ``sms``
+    SMs: the first tile of ``_DETECT_TILES`` (cell rows x cell columns,
+    clipped to the image) that gives at least two CTAs per SM, else the
+    last. CTA (b, i) covers cell rows [s*S, s*S+S) and cell columns
+    [p*CW, p*CW+CW), both clipped to the image, with s = i // parts,
+    p = i % parts and CW = ceil(W8 / parts)."""
+    for rows, cols in _DETECT_TILES:
+        S = max(1, min(rows, H8))
+        parts = -(-W8 // max(1, min(cols, W8)))
+        ctas = B * -(-H8 // S) * parts
+        if ctas >= 2 * sms:
+            break
+    return ctas, S, parts
 
 
 def detect_candidates(logits, heatmap, threshold: float = 0.05,
@@ -128,23 +163,25 @@ def detect_candidates(logits, heatmap, threshold: float = 0.05,
     _check(heatmap, "heatmap", torch.float32, (B, H8, W8, 1))
     if not 1 <= nc <= 64:
         raise ValueError(f"nc must lie in [1, 64], got {nc}")
-    W = W8 * 8
-    rows = _DETECT_SMEM // (W * 4)
-    S = max(1, min(H8, (rows - 4) // 8))
-    if (S * 8 + 4) * W * 4 > _SMEM_MAX:
-        raise ValueError(f"detect_candidates: images {W} px wide exceed the "
-                         "kernel's shared memory")
     vals = torch.empty((B, H8, nc, W8), dtype=torch.float32,
                        device=logits.device)
     aux = torch.empty_like(vals)
-    if B * H8 == 0:
+    if B * H8 * W8 == 0:
         return vals, aux
+    device = logits.get_device()
+    _, S, parts = detect_grid(B, H8, W8, _sm_count(device))
+    CW = -(-W8 // parts)
+    if _entry("detect_smem_bytes")(S, CW, nc) > _SMEM_MAX:
+        raise ValueError(f"detect_candidates: nc={nc} exceeds the kernel's "
+                         "shared memory")
+    # one thread per (cell row, pixel column) of the tile, up to 512
+    threads = 512 if S * CW * 8 > 256 else 256
     # the reliability positions' scale, rounded to float32 once, as JAX does
-    scale_x = float(np.float32(W8 / (W - 1.0)))
+    scale_x = float(np.float32(W8 / (W8 * 8 - 1.0)))
     scale_y = float(np.float32(H8 / (H8 * 8 - 1.0)))
-    _launch("detect_candidates", logits.get_device(), _ptr(logits),
-            _ptr(heatmap), _ptr(vals), _ptr(aux), B, H8, W8, nc, S, threshold,
-            softmax_temp, scale_x, scale_y)
+    _launch("detect_candidates", device, _ptr(logits), _ptr(heatmap),
+            _ptr(vals), _ptr(aux), B, H8, W8, nc, S, parts, threads,
+            threshold, softmax_temp, scale_x, scale_y)
     detect_candidates.launches += 1
     return vals, aux
 
@@ -189,8 +226,8 @@ def bilinear_desc_sample(feats, idx4, w4):
     _check(feats, "feats", torch.float32, (B, NP, 64))
     _check(idx4, "idx4", torch.int32, (B, K, 4))
     _check(w4, "w4", torch.float32, (B, K, 4))
-    if feats.data_ptr() % 8:
-        raise ValueError("feats: must be 8-byte aligned (read as float2)")
+    if feats.data_ptr() % 16:
+        raise ValueError("feats: must be 16-byte aligned (read as float4)")
     out = torch.empty((B, K, 64), dtype=torch.float32, device=feats.device)
     _launch("desc_sample", feats.get_device(), _ptr(feats), _ptr(idx4),
             _ptr(w4), _ptr(out), B, NP, K)
@@ -199,6 +236,60 @@ def bilinear_desc_sample(feats, idx4, w4):
 
 
 bilinear_desc_sample.launches = 0
+
+
+def keypoint_desc_plain(feats, scores, sel, aux, W8: int,
+                        subpixel: bool = False):
+    """Plain version: the candidates' decode, ``detect.desc_taps`` and
+    ``bilinear_desc_sample_plain``."""
+    from . import detect  # detect imports this module
+
+    H8 = feats.shape[1] // W8
+    kpts, off = detect.decode_candidates(sel, aux, W8)
+    if subpixel:
+        kpts = kpts + off
+    idx4, w4 = detect.desc_taps(kpts, scores > 0.0, H8, W8)
+    return kpts, bilinear_desc_sample_plain(feats, idx4, w4)
+
+
+def keypoint_desc(feats, scores, sel, aux, W8: int, subpixel: bool = False):
+    """The descriptor stage after the top-k over the detect candidates, in
+    one launch: decode the selected candidates' pixels (and, with
+    ``subpixel``, their quantized soft-argmax offsets), compute the four
+    bilinear taps of each keypoint as ``detect.desc_taps`` does, and sample
+    as ``bilinear_desc_sample`` does.
+
+    Args:
+      feats: (B, H8*W8, 64) float32 raw dense descriptors.
+      scores, sel: (B, K) float32 and int64, ``torch.topk`` of the
+        flattened candidate scores; a keypoint is valid where its score > 0.
+      aux: (B, H8, nc, W8) float32 packed candidates of
+        ``detect_candidates``.
+    Returns kpts (B, K, 2) float32 (x, y) pixels and desc (B, K, 64)
+    L2-normalized, zero where invalid."""
+    if not _on_cuda(feats, scores, sel, aux):
+        return keypoint_desc_plain(feats, scores, sel, aux, W8, subpixel)
+    B, K = sel.shape
+    H8, nc = aux.shape[1], aux.shape[2]
+    _check(feats, "feats", torch.float32, (B, H8 * W8, 64))
+    _check(scores, "scores", torch.float32, (B, K))
+    _check(sel, "sel", torch.int64, (B, K))
+    _check(aux, "aux", torch.float32, (B, H8, nc, W8))
+    if feats.data_ptr() % 16:
+        raise ValueError("feats: must be 16-byte aligned (read as float4)")
+    kpts = torch.empty((B, K, 2), dtype=torch.float32, device=feats.device)
+    desc = torch.empty((B, K, 64), dtype=torch.float32, device=feats.device)
+    # the positions' scale, rounded to float32 once, as the plain ops do
+    scale_x = float(np.float32(W8 / (W8 * 8 - 1.0)))
+    scale_y = float(np.float32(H8 / (H8 * 8 - 1.0)))
+    _launch("keypoint_desc", feats.get_device(), _ptr(feats), _ptr(scores),
+            _ptr(sel), _ptr(aux), _ptr(kpts), _ptr(desc), B, H8, W8, nc, K,
+            int(subpixel), scale_x, scale_y)
+    keypoint_desc.launches += 1
+    return kpts, desc
+
+
+keypoint_desc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +448,8 @@ def mutual_nn_top2(desc_a, desc_b, valid_a, valid_b):
     return d1, d2, i1, col_best
 
 
-_WRAPPERS = (detect_candidates, bilinear_desc_sample, mutual_nn_pairs,
-             similarity_top2)
+_WRAPPERS = (detect_candidates, bilinear_desc_sample, keypoint_desc,
+             mutual_nn_pairs, similarity_top2)
 
 
 def launch_counts() -> dict:

@@ -10,7 +10,9 @@ ever built.
 TPU path: ``cuda_kernels.detect_candidates`` (the CUDA kernel on a GPU
 tensor, the cell-space functions below on a CPU tensor) emits per-cell
 candidates, one ``torch.topk`` over all of them picks the K best, and
-``cuda_kernels.bilinear_desc_sample`` samples the descriptors. Unlike the
+``cuda_kernels.keypoint_desc`` decodes the keypoints and samples their
+descriptors in one launch (``decode_candidates``, ``desc_taps`` and
+``cuda_kernels.bilinear_desc_sample`` on a CPU tensor). Unlike the
 JAX package it always runs the full 9-slot candidate kernel: the 5-slot
 fast path, its ``lax.cond`` fallback and the shallow/deep top-k merge exist
 to dodge TPU sort costs, and in eager PyTorch the condition would cost a
@@ -208,21 +210,23 @@ def cell_candidates(ranked, aux, nc: int):
     return vals.contiguous(), auxs.contiguous()
 
 
-def _candidates_topk(vals, aux, k: int, W8: int):
-    """Exact top-k over the per-cell candidates. Candidate (b,cy,r,cx) is
-    pixel (cy*8+ch//8, cx*8+ch%8) with ch = aux>>18; the offsets are
-    q/255 - 1 from the packed aux. Returns (scores (B,k), flat full-res
-    indices (B,k), offsets (B,k,2))."""
-    B, _, NC, _ = vals.shape
+def decode_candidates(sel, aux, W8: int):
+    """The pixels and sub-pixel offsets of candidates picked from the
+    flattened (B,H8,nc,W8) candidate maps (the decode of the JAX package's
+    ``_candidates_topk``). Candidate (b,cy,r,cx) is pixel
+    (cy*8+ch//8, cx*8+ch%8) with ch = aux>>18; the offsets are q/255 - 1
+    from the packed aux. Returns kpts (B,k,2) float (x,y) and offsets
+    (B,k,2)."""
+    B, _, NC, _ = aux.shape
     W = W8 * 8
-    scores, sel = torch.topk(vals.reshape(B, -1), k, dim=1)
     gi = torch.gather(aux.reshape(B, -1), 1, sel).to(torch.int32)
     chs = gi >> 18
-    off = torch.stack([((gi >> 9) & 511).float(), (gi & 511).float()],
-                      -1) / 255.0 - 1.0
-    cy = sel // (NC * W8)
-    cx = sel % W8
-    return scores, (cy * 8 + chs // 8) * W + cx * 8 + chs % 8, off
+    q = torch.stack([(gi >> 9) & 511, gi & 511], -1).float()
+    # divided by a tensor: on CUDA a division by a Python number multiplies
+    # by its rounded reciprocal, which is off by an ulp for 316 of the 511 q
+    off = q / torch.full_like(q, 255.0) - 1.0
+    idx = (sel // (NC * W8) * 8 + chs // 8) * W + sel % W8 * 8 + chs % 8
+    return torch.stack([(idx % W).float(), (idx // W).float()], -1), off
 
 
 def desc_taps(kpts, valid, H8: int, W8: int):
@@ -252,6 +256,18 @@ def desc_taps(kpts, valid, H8: int, W8: int):
     return idx4.contiguous(), w4.contiguous()
 
 
+def sample_descriptors(feats, kpts, valid):
+    """Descriptors at given keypoints (the JAX package's
+    ``_desc_sample_pallas``): the four bilinear taps of ``desc_taps``, then
+    ``cuda_kernels.bilinear_desc_sample``. feats (B,H8,W8,64) raw dense
+    descriptors, kpts (B,K,2) (x,y) pixels, valid (B,K) -> (B,K,64)
+    L2-normalized, zero where invalid."""
+    B, H8, W8, C = feats.shape
+    idx4, w4 = desc_taps(kpts, valid, H8, W8)
+    return ck.bilinear_desc_sample(feats.reshape(B, H8 * W8, C).contiguous(),
+                                   idx4, w4)
+
+
 def select_keypoints(feats, logits, heatmap, num_keypoints: int,
                      threshold: float = 0.05, softmax_temp: float = 1.0,
                      subpixel: bool = False):
@@ -267,16 +283,11 @@ def select_keypoints(feats, logits, heatmap, num_keypoints: int,
     invalid), desc (B,K,64) L2-normalized (zero where invalid), valid (B,K).
     """
     B, H8, W8, C = feats.shape
-    W = W8 * 8
     vals, aux = ck.detect_candidates(logits.contiguous(),
                                      heatmap.contiguous(), threshold,
                                      softmax_temp)
-    scores, idx, off = _candidates_topk(vals, aux, num_keypoints, W8)
-    kpts = torch.stack([(idx % W).float(), (idx // W).float()], -1)
-    valid = scores > 0.0
-    if subpixel:
-        kpts = kpts + off
-    idx4, w4 = desc_taps(kpts, valid, H8, W8)
-    desc = ck.bilinear_desc_sample(
-        feats.reshape(B, H8 * W8, C).contiguous(), idx4, w4)
-    return {"kpts": kpts, "scores": scores, "desc": desc, "valid": valid}
+    scores, sel = torch.topk(vals.reshape(B, -1), num_keypoints, dim=1)
+    kpts, desc = ck.keypoint_desc(feats.reshape(B, H8 * W8, C).contiguous(),
+                                  scores, sel, aux, W8, subpixel)
+    return {"kpts": kpts, "scores": scores, "desc": desc,
+            "valid": scores > 0.0}
