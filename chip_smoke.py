@@ -39,15 +39,25 @@ Phases, each fatal on failure:
      intrinsics), a map back-projected from frame 0 (stage 1: M1=1000
      slots, stage 2: a 4096-row local map), ``xfeat_rgbd_frame_step`` on
      frames 1-5, counted per frame, held to the ground truth (< 1 cm) and to
-     the plain-kernel path; the monocular configuration once; no host sync
+     the plain-kernel path; the same frames by replay of the step's CUDA
+     graph (``track_step.RgbdFrameStepGraph``), bit for bit against the
+     eager step, with one ``detect_candidates`` and one ``keypoint_desc``
+     recorded at capture; the monocular configuration once; no host sync
      inside a step (``torch.cuda.set_sync_debug_mode``);
-  8. CUDA-event timings of the forward, each kernel and its plain version
+  8. the RGB-D SLAM host, counted: ``System.track_rgbd`` (no loop closing)
+     on 40 rendered frames at 640x480, K=1000, the shipped weights, held to
+     the JAX package's 40-frame bars (every frame OK, camera centre within
+     3 cm everywhere and 1 cm at the median), at least 30 frames through
+     the captured step; the host wall time per frame, the ``track`` and
+     ``backend`` spans, local BA per round, the map's size;
+  9. CUDA-event timings of the forward, each kernel and its plain version
      (detect also at batch 1), the top-k, a PyTorch yardstick call where one
      computes the same function, the stages of one batch
      (``match_consecutive`` both ways) and the end-to-end frame rate; the
      kernels', the top-k's and the matchers' yardsticks' device time alone,
-     by CUDA-graph replay; the frame step per frame and its parts, its
-     host wall time and its CUDA kernel count (``torch.profiler``).
+     by CUDA-graph replay; the frame step per frame eager and by graph
+     replay, its parts, its host wall time and its CUDA kernel count
+     (``torch.profiler``).
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers, and as its last line
@@ -103,6 +113,9 @@ BF, DEPTH_EDGE_REL, INV_SIGMA2 = 40.0, 0.05, 1.0
 RADIUS_MOTION, RADIUS_LOCAL, TH_HIGH, RATIO = 15.0, 10.0, 1000.0, 0.9
 WIDEN_BELOW, SCALE_FACTOR = 20, 1.2
 N_FRAMES = 6
+# frames of the SLAM phase (the 40-frame bars of the JAX package's
+# test_slam_integration.py)
+SLAM_FRAMES, SLAM_MIN_CAPTURED = 40, 30
 
 
 class SmokeFailure(Exception):
@@ -694,6 +707,40 @@ def frame_step_phase(model, ck, dev):
           + (f": {syncs[:3]}" if syncs else ""))
     check(not syncs, "the frame step synchronizes with the host")
 
+    # ---- the same frames by CUDA-graph replay, bit for bit ----
+    graph = track_step.RgbdFrameStepGraph(model)
+
+    def replay(i, R0, t0):
+        return graph(imgs[i], depths[i], R0, t0, *maps, cam, BF,
+                     DEPTH_EDGE_REL, INV_SIGMA2, RADIUS_MOTION, RADIUS_LOCAL,
+                     TH_HIGH, RATIO, WIDEN_BELOW, SCALE_FACTOR, 2.0 * cam.cx,
+                     2.0 * cam.cy, num_keypoints=K, n_levels=1,
+                     has_depth=True)
+
+    for i, ((R0, t0), res) in enumerate(zip(inputs, results), 1):
+        ck.reset_launch_counts()
+        got = track_step.fetch(replay(i, R0, t0))
+        counts = path_counts(ck, f"frame step by graph replay, frame {i}", {
+            name: None if i == 1 else 1 for name in FRAME_STEP_KERNELS})
+        want = track_step.fetch(res)
+        differ = [f"{part}.{k}" for part, a, b in zip(("frame", "r1", "r2"),
+                                                      want, got)
+                  for k, x in (a.items() if isinstance(a, dict)
+                               else a._asdict().items())
+                  if not np.array_equal(x, (b if isinstance(b, dict)
+                                            else b._asdict())[k])]
+        print(f"frame {i} by graph replay: bit-identical to the eager step: "
+              f"{not differ}" + (f" (differ: {differ})" if differ else "")
+              + (f"; launches in the call that captured {counts}"
+                 if i == 1 else ""))
+        check(not differ, f"frame {i}: graph replay differs from the eager "
+              "step")
+    captured = graph.captured_launches()
+    print(f"frame step graph: kernel launches recorded at capture "
+          f"{captured}")
+    check(captured == [{name: 1 for name in FRAME_STEP_KERNELS}],
+          "the captured frame step does not launch each kernel once")
+
     # ---- the same frames through the plain kernels ----
     t_dev, slot_agree = 0.0, 1.0
     with plain_kernels(ck):
@@ -722,7 +769,15 @@ def frame_step_phase(model, ck, dev):
     out1, r1_1, _ = results[0]
     times = {"frame_step": cuda_ms(lambda: step(1, R1, t1), iters=5,
                                    warmup=1),
+             "frame_step_graph": cuda_ms(lambda: replay(1, R1, t1), iters=20,
+                                         warmup=2),
              "extract_b1": cuda_ms(lambda: extract_fn(model, imgs[1], K))}
+    walls = []
+    for _ in range(10):
+        tw = time.perf_counter()
+        track_step.fetch(replay(1, R1, t1))
+        walls.append(time.perf_counter() - tw)
+    times["graph_host_wall_with_fetch"] = float(np.median(walls)) * 1e3
     zeros_k = torch.zeros(K, device=dev)
     isig = zeros_k + INV_SIGMA2
     times["two_stages"] = cuda_ms(lambda: track_step.two_stage_track_step(
@@ -763,6 +818,88 @@ def frame_step_phase(model, ck, dev):
           + json.dumps(dict(ops[:12])))
     print(f"frame step ms at {W}x{H}, K={K}, M1={M1}, M2={M2}, batch 1: "
           + json.dumps({k: round(v, 4) for k, v in times.items()}))
+
+
+def slam_phase(ck, n_frames):
+    """``System.track_rgbd`` (no loop closing) on ``n_frames`` rendered
+    frames at 640x480, K=1000, the shipped weights, counted: every frame
+    OK, the camera centre within 3 cm of the truth everywhere and 1 cm at
+    the median, at least SLAM_MIN_CAPTURED frames through the captured
+    step; host wall time per frame, the track and backend spans, local BA
+    per round, the map's size."""
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.slam.settings import Settings
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    seq = synthetic.make_sequence(n_frames=n_frames)
+    Km = seq["K"]
+    settings = Settings(
+        cam=Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2]]),
+        bf=40.0, th_depth=3.0, depth_map_factor=1.0, n_features=K)
+    system = System(settings, Sensor.RGBD, enable_loop_closing=False)
+    print(f"slam: {n_frames} frames rendered at {W}x{H} and the System built "
+          f"in {time.perf_counter() - t0:.2f} s")
+    ck.reset_launch_counts()
+    states, errs, walls = [], [], []
+    for i in range(n_frames):
+        tw = time.perf_counter()
+        state, pose = system.track_rgbd(seq["images"][i], seq["depths"][i],
+                                        seq["timestamps"][i])
+        walls.append(time.perf_counter() - tw)
+        states.append(state.name)
+        if pose is not None:
+            Rg, tg = seq["poses"][i]
+            errs.append(float(np.linalg.norm(-pose[0].T @ pose[1]
+                                             + Rg.T @ tg)))
+    counts = path_counts(ck, f"System.track_rgbd, {n_frames} frames",
+                         {name: None for name in FRAME_STEP_KERNELS})
+    stats = system.shutdown()
+    errs = np.array(errs)
+    print(f"slam: states {states.count('OK')} of {n_frames} OK, camera "
+          f"centre error max {errs.max() * 1e3:.3f} mm, median "
+          f"{np.median(errs) * 1e3:.3f} mm; {stats['keyframes']} keyframes, "
+          f"{stats['map_points']} map points; "
+          f"{stats.get('fused_grab', 0)} frames through the captured step; "
+          f"launches {counts}")
+    check(states == ["OK"] * n_frames, f"slam: a frame was not OK: {states}")
+    check(errs.max() < 0.03, "slam: camera centre error >= 3 cm")
+    check(np.median(errs) < 0.01, "slam: median camera centre error >= 1 cm")
+    check(stats.get("fused_grab", 0) >= SLAM_MIN_CAPTURED,
+          "slam: too few frames through the captured step")
+
+    def pct(xs, q):
+        return round(float(np.percentile(np.asarray(xs) * 1e3, q)), 4)
+
+    # steady state: frames 2.. (frame 0 initializes the map, frame 1
+    # captures the graph)
+    spans = system.timer.samples
+    ba = system.local_mapping.ba_seconds
+    report = {
+        "wall_per_frame_ms": {"median": pct(walls[2:], 50),
+                              "p90": pct(walls[2:], 90)},
+        "track_ms": {"median": pct(spans["track"][2:], 50),
+                     "p90": pct(spans["track"][2:], 90)},
+        "backend_ms": {"median": pct(spans["backend"][2:], 50),
+                       "p90": pct(spans["backend"][2:], 90)},
+        # inside track: the host's inputs of the step, then the replay and
+        # its one read (the first replay's call captured the graph)
+        "track_snapshot_ms": {"median": pct(spans["track.snapshot"][1:], 50),
+                              "p90": pct(spans["track.snapshot"][1:], 90)},
+        "track_frame_step_ms": {
+            "median": pct(spans["track.frame_step"][1:], 50),
+            "p90": pct(spans["track.frame_step"][1:], 90)},
+        "frame_0_ms": round(walls[0] * 1e3, 4),
+        "frame_1_capture_ms": round(walls[1] * 1e3, 4),
+        "local_ba_first_stage_ms": [round(s * 1e3, 4) for k, s in ba
+                                    if k == "first"],
+        "local_ba_tick_ms": [round(s * 1e3, 4) for k, s in ba
+                             if k == "tick"],
+        "keyframes": stats["keyframes"], "map_points": stats["map_points"],
+    }
+    print(f"slam timings (host wall, {n_frames} frames at {W}x{H}, K={K}): "
+          + json.dumps(report))
 
 
 def run(batch: int):
@@ -899,6 +1036,9 @@ def run(batch: int):
 
     # ---- the online RGB-D frame step ----
     frame_step_phase(model, ck, dev)
+
+    # ---- the RGB-D SLAM host ----
+    slam_phase(ck, SLAM_FRAMES)
 
     # ---- timings ----
     P = batch - 1

@@ -24,6 +24,9 @@ from xfeatslam_tpu_torch.models import weights as tw  # noqa: E402
 from xfeatslam_tpu_torch.models.extractor import XFeatExtractor  # noqa: E402
 from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from xfeatslam_tpu_torch.ops import image as ti  # noqa: E402
+from xfeatslam_tpu_torch.ops.camera import Pinhole  # noqa: E402
+from xfeatslam_tpu_torch.slam.settings import Settings  # noqa: E402
+from xfeatslam_tpu_torch.slam.system import Sensor, System  # noqa: E402
 from xfeatslam_tpu_torch.parallel import batched as tb  # noqa: E402
 
 from test_torch_xfeat import NPZ, blob_images  # noqa: E402
@@ -116,9 +119,13 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch.models import xfeat, weights, extractor\n"
         "from xfeatslam_tpu_torch.ops import image, detect, matching, cuda_kernels\n"
         "from xfeatslam_tpu_torch.ops import lie, camera\n"
-        "from xfeatslam_tpu_torch.optim import pose_opt, track_step\n"
+        "from xfeatslam_tpu_torch.ops import geometry\n"
+        "from xfeatslam_tpu_torch.optim import pose_opt, track_step, local_ba\n"
         "from xfeatslam_tpu_torch.parallel import batched\n"
-        "from xfeatslam_tpu_torch.utils import synthetic\n"
+        "from xfeatslam_tpu_torch.utils import synthetic, io, timing, verbose\n"
+        "from xfeatslam_tpu_torch.slam import (atlas, frame, local_mapping,\n"
+        "    map, settings, system, tracking)\n"
+        "from xfeatslam_tpu_torch.examples import rgbd_tum\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'xfeatslam_tpu')]\n"
@@ -138,6 +145,9 @@ def test_entry_points_default_to_cuda():
         lambda: tw.from_jax_params(tw.load_npz_params(NPZ)),
         lambda: XFeatExtractor(nfeatures=10),
         lambda: ti.to_float_image(np.zeros((32, 32), np.uint8)),
+        lambda: System(Settings(cam=Pinhole.from_list([100.0, 100.0, 16.0,
+                                                       16.0])),
+                       Sensor.RGBD, enable_loop_closing=False).extractor,
     ]
     for make in entry_points:
         if torch.cuda.is_available():

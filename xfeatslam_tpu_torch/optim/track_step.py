@@ -8,7 +8,9 @@ one jitted XLA graph (``match_pose_step`` is the jit of
 here each is one eager function that keeps every intermediate on the
 device and never reads a device value on the host: both widen passes are
 computed and selected with ``torch.where``, as the JAX graph does, and
-scalar settings are Python numbers. The caller fetches the result once.
+scalar settings are Python numbers. The caller fetches the result once
+(``fetch``). On the card the whole frame step is captured as one CUDA
+graph and replayed (``RgbdFrameStepGraph``).
 
 Two configurations cover the two tracking stages:
   - motion-model step: fresh bindings, widen x2 when matches are scarce
@@ -26,6 +28,7 @@ import torch
 
 from ..models.extractor import extract_fn
 from ..ops import camera as camera_ops
+from ..ops import cuda_kernels as ck
 from ..ops import lie, matching
 from ..ops.camera import Pinhole
 from . import pose_opt
@@ -199,6 +202,34 @@ def two_stage_track_step(
     return r1, r2
 
 
+def keypoint_depth(depth_m, kpts, kpts_un, valid, bf, depth_edge_rel):
+    """Metric depth and virtual right u at the keypoints (K,2) of a
+    (H,W) depth map: the depth at the rounded pixel, dropped where the 3x3
+    neighbourhood's max - min exceeds ``depth_edge_rel`` times it (a
+    silhouette) or holds no depth. The neighbours are 9 clamped gathers at
+    the K keypoints: the 3x3 erosion and dilation of the JAX package's
+    ``FramePipeline.build_rgbd``, whose border counts only in-image
+    pixels. Returns (d, ur), d = 0 and ur = -1 where there is no depth."""
+    H, W = depth_m.shape
+    xi = torch.round(kpts[:, 0]).long().clamp(0, W - 1)
+    yi = torch.round(kpts[:, 1]).long().clamp(0, H - 1)
+    d0 = depth_m[yi, xi]
+    dmin = d0
+    dmax = d0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            dn = depth_m[(yi + dy).clamp(0, H - 1), (xi + dx).clamp(0, W - 1)]
+            dmin = torch.minimum(dmin, dn)
+            dmax = torch.maximum(dmax, dn)
+    d = torch.where(valid, d0, 0.0)
+    edge = (dmax - dmin) > depth_edge_rel * d.clamp(min=1e-6)
+    d = torch.where(edge | (dmin <= 0), 0.0, d)
+    ur = torch.where(d > 0, kpts_un[:, 0] - bf / d.clamp(min=1e-6), -1.0)
+    return d, ur
+
+
 @torch.no_grad()
 def xfeat_rgbd_frame_step(
         model, image, depth_m, R0, t0,
@@ -231,24 +262,8 @@ def xfeat_rgbd_frame_step(
     dev = kpts.device
 
     if has_depth:
-        H, W = depth_m.shape
-        xi = torch.round(kpts[:, 0]).long().clamp(0, W - 1)
-        yi = torch.round(kpts[:, 1]).long().clamp(0, H - 1)
-        d0 = depth_m[yi, xi]
-        dmin = d0
-        dmax = d0
-        for dy in (-1, 0, 1):
-            for dx in (-1, 0, 1):
-                if dy == 0 and dx == 0:
-                    continue
-                dn = depth_m[(yi + dy).clamp(0, H - 1),
-                             (xi + dx).clamp(0, W - 1)]
-                dmin = torch.minimum(dmin, dn)
-                dmax = torch.maximum(dmax, dn)
-        d = torch.where(valid, d0, 0.0)
-        edge = (dmax - dmin) > depth_edge_rel * d.clamp(min=1e-6)
-        d = torch.where(edge | (dmin <= 0), 0.0, d)
-        ur = torch.where(d > 0, kpts_un[:, 0] - bf / d.clamp(min=1e-6), -1.0)
+        d, ur = keypoint_depth(depth_m, kpts, kpts_un, valid, bf,
+                               depth_edge_rel)
     else:
         d = torch.zeros(K, dtype=torch.float32, device=dev)
         ur = torch.full((K,), -1.0, dtype=torch.float32, device=dev)
@@ -265,3 +280,151 @@ def xfeat_rgbd_frame_step(
                  "scores": out["scores"][0], "valid": valid, "depth": d,
                  "ur": ur}
     return frame_out, r1, r2
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple    # static input buffers, in the step's argument order
+    outputs: tuple   # (frame dict, stage-1 result, stage-2 result)
+    launches: dict   # kernel launches one replay makes, per wrapper
+
+
+class RgbdFrameStepGraph:
+    """``xfeat_rgbd_frame_step`` captured as one CUDA graph per static
+    signature and replayed: the counterpart of the JAX package's single
+    jitted graph per frame.
+
+    The eager step launches ~40k small kernels per frame and is bound by
+    their host cost; a replay launches the same kernels from the graph. A
+    graph bakes in everything the step does not read from a tensor, so the
+    cache key holds all of it: each tensor argument's shape and dtype, the
+    camera's intrinsics and distortion, every Python scalar (bf,
+    depth_edge_rel, inv_sigma2_0, both radii, max_dist, ratio, widen_below,
+    scale_factor, img_w, img_h) and the static flags (num_keypoints,
+    n_levels, has_depth). A scalar missing from the key would replay the
+    old value after a settings change.
+
+    Capture follows the ``torch.cuda.graphs`` recipe: WARMUP eager runs on
+    a side stream, then one capture; each call copies the tensor
+    arguments (on the CPU or the card) into the graph's static inputs and
+    replays. The returned tensors are the graph's static outputs: the next
+    call overwrites them, so read them (``fetch``) before calling again. A
+    failed capture raises; nothing falls back to the eager step. The kernel
+    wrappers count a launch when called, which a replay does not do, so each
+    replay adds the launches its capture recorded to their counters."""
+
+    WARMUP = 3
+
+    def __init__(self, model):
+        self.model = model
+        self.device = next(model.parameters()).device
+        if self.device.type != "cuda":
+            raise ValueError("RgbdFrameStepGraph needs a model on a CUDA "
+                             "device; call xfeat_rgbd_frame_step on the CPU")
+        self._graphs: dict = {}
+
+    def captured_launches(self) -> list:
+        """The kernel launches each captured graph makes per replay."""
+        return [dict(e.launches) for e in self._graphs.values()]
+
+    def __call__(self, image, depth_m, R0, t0,
+                 pos1, desc1, valid1, angle1, octave1, ids1,
+                 pos2, desc2, valid2, angle2, octave2, ids2, dmax2,
+                 cam: Pinhole, bf, depth_edge_rel, inv_sigma2_0,
+                 radius1, radius2, max_dist, ratio, widen_below, scale_factor,
+                 img_w, img_h, num_keypoints: int, n_levels: int = 1,
+                 has_depth: bool = True):
+        tensors = (image, depth_m, R0, t0, pos1, desc1, valid1, angle1,
+                   octave1, ids1, pos2, desc2, valid2, angle2, octave2, ids2,
+                   dmax2)
+        scalars = tuple(float(x) for x in (
+            bf, depth_edge_rel, inv_sigma2_0, radius1, radius2, max_dist,
+            ratio)) + (int(widen_below),) + tuple(float(x) for x in (
+                scale_factor, img_w, img_h))
+        static = (int(num_keypoints), int(n_levels), bool(has_depth))
+        key = (tuple((tuple(x.shape), x.dtype) for x in tensors),
+               tuple(float(c) for c in cam), scalars, static)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._capture(tensors, cam, scalars, static)
+            self._graphs[key] = entry
+        else:
+            for dst, src in zip(entry.inputs, tensors):
+                dst.copy_(src, non_blocking=True)
+        entry.graph.replay()
+        for w in ck._WRAPPERS:
+            w.launches += entry.launches.get(w.__name__, 0)
+        return entry.outputs
+
+    def _capture(self, tensors, cam, scalars, static) -> _Captured:
+        inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                       for x in tensors)
+        for dst, src in zip(inputs, tensors):
+            dst.copy_(src)
+        num_keypoints, n_levels, has_depth = static
+
+        def run():
+            return xfeat_rgbd_frame_step(
+                self.model, *inputs, cam, *scalars,
+                num_keypoints=num_keypoints, n_levels=n_levels,
+                has_depth=has_depth)
+
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                run()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ck.launch_counts()
+        with torch.cuda.graph(graph):
+            outputs = run()
+        # the capture recorded these launches without running them
+        launches = {}
+        for w in ck._WRAPPERS:
+            n = w.launches - before[w.__name__]
+            w.launches = before[w.__name__]
+            if n:
+                launches[w.__name__] = n
+        return _Captured(graph, inputs, outputs, launches)
+
+
+def fetch(tree):
+    """numpy copies of the tensors of ``tree`` (a tensor, or nested tuples,
+    lists, dicts and NamedTuples of tensors), with one host synchronization
+    for all CUDA tensors: the counterpart of the JAX tracker's single
+    ``jax.device_get`` per frame."""
+    pending = []
+
+    def to_host(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                pending.append(x.device)
+                return h
+            return x
+        if isinstance(x, dict):
+            return {k: to_host(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(to_host(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(to_host(v) for v in x)
+        return x
+
+    host = to_host(tree)
+    for dev in set(pending):
+        torch.cuda.current_stream(dev).synchronize()
+
+    def to_numpy(x):
+        if isinstance(x, torch.Tensor):
+            return x.numpy()
+        if isinstance(x, dict):
+            return {k: to_numpy(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(to_numpy(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(to_numpy(v) for v in x)
+        return x
+
+    return to_numpy(host)
