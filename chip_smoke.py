@@ -41,11 +41,17 @@ Phases, each fatal on failure:
      frames 1-5, counted per frame, held to the ground truth (< 1 cm) and to
      the plain-kernel path; the same frames by replay of the step's CUDA
      graph (``track_step.RgbdFrameStepGraph``), bit for bit against the
-     eager step, with one ``detect_candidates`` and one ``keypoint_desc``
-     recorded at capture; the monocular configuration once; no host sync
-     inside a step (``torch.cuda.set_sync_debug_mode``);
-  8. the RGB-D SLAM host, counted: ``System.track_rgbd`` (no loop closing)
-     on 40 rendered frames at 640x480, K=1000, the shipped weights, run
+     eager step, with one ``detect_candidates``, one ``keypoint_desc`` and
+     two ``pose_lm`` (one per tracking stage) recorded at capture; the
+     monocular configuration once; no host sync inside a step
+     (``torch.cuda.set_sync_debug_mode``); the ``pose_lm`` kernel against
+     its plain version on both stages' inputs of frames 1-5 and on odd
+     inputs (no valid edge, all mono with bf 0, 30% outliers, N=999,
+     N=2048, the largest N it takes; one N more refused): R and t within
+     1e-4, inlier flags equal on >= 0.99 of the valid slots, two calls bit
+     for bit;
+  8. the RGB-D SLAM host, counted: ``System.track_rgbd`` (loop closing
+     on; no loop may close) on 40 rendered frames at 640x480, K=1000, the shipped weights, run
      three times in one process, each held to the JAX package's 40-frame
      bars (every frame OK, camera centre within 3 cm everywhere and 1 cm
      at the median), at least 30 frames through the captured step, runs 2
@@ -60,22 +66,32 @@ Phases, each fatal on failure:
      too; the tracker set LOST takes frame 1, which no keyframe was made
      from, and comes back OK within 1 cm; each leaves the map as it was;
      then localization mode, counted: frames 2-6 OK with the map's
-     keyframe and point counts unchanged;
- 10. local BA (``optim/local_ba``) at the bucket's shapes (32 cameras,
+     keyframe and point counts unchanged; the ``pose_lm`` kernel against its
+     plain version on every pose-LM call the relocalizations made;
+ 10. loop closing on ``bench.py --mode loop``'s workload at its size (the
+     40-keyframe drifted RGB-D chain of ``utils/synthetic.make_loop_map``):
+     at least one closure, the ATE RMSE after below the RMSE before and
+     within 1.25x of the JAX package's CPU result on the same map; host ms
+     per keyframe; the GBA's last problem eager and by replay, bit for
+     bit, timed, with its device events; the atlas through
+     ``System.save_atlas`` and ``load_atlas``: keyframes, points, poses and
+     the retrieval index equal;
+ 11. local BA (``optim/local_ba``) at the bucket's shapes (32 cameras,
      4096 points, 16384 observations) on the SLAM run's last first-stage
      problem and on a full bucket, for both schedules local mapping runs:
      two eager solves bit-identical, the ``LocalBAGraph`` replay
      bit-identical to the eager solve; eager, capture and replay ms and
      the kernels per round (``torch.profiler``); the card's solve against
      the CPU's solve of the same problem;
- 11. CUDA-event timings of the forward, each kernel and its plain version
+ 12. CUDA-event timings of the forward, each kernel and its plain version
      (detect also at batch 1), the top-k, a PyTorch yardstick call where one
      computes the same function, the stages of one batch
      (``match_consecutive`` both ways) and the end-to-end frame rate; the
      kernels', the top-k's and the matchers' yardsticks' device time alone,
      by CUDA-graph replay; the frame step per frame eager and by graph
      replay, its parts, its host wall time and its CUDA kernel count
-     (``torch.profiler``).
+     (``torch.profiler``); ``pose_lm`` alone, by CUDA events and by graph
+     replay, its plain version and its bounds.
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers, and as its last line
@@ -119,11 +135,16 @@ KERNEL_SOURCES = {
                         "xfeatslam_tpu/ops/pallas_kernels.py:596"),
     "similarity_top2": ("xfeatslam_tpu_torch/csrc/mnn_pairs.cu",
                         "xfeatslam_tpu/ops/pallas_kernels.py:84"),
+    "pose_lm": ("xfeatslam_tpu_torch/csrc/pose_lm.cu",
+                "xfeatslam_tpu/optim/pose_opt.py:82 (XLA, not Pallas)"),
 }
 # the kernels each path must launch
 BATCHED_KERNELS = {"detect_candidates": 1, "keypoint_desc": 1,
                    "mutual_nn_pairs": 1}
-FRAME_STEP_KERNELS = ("detect_candidates", "keypoint_desc")
+# the kernels of one frame step and their launches: the pose LM once per
+# tracking stage
+FRAME_STEP_KERNELS = {"detect_candidates": 1, "keypoint_desc": 1,
+                      "pose_lm": 2}
 # the online frame step: TrackerConfig's XFeat defaults (slam/tracking.py)
 # and the local-map bucket
 M1, M2 = 1000, 4096
@@ -134,6 +155,21 @@ N_FRAMES = 6
 # frames of the SLAM phase (the 40-frame bars of the JAX package's
 # test_slam_integration.py)
 SLAM_FRAMES, SLAM_MIN_CAPTURED = 40, 30
+# the loop phase's bar on bench.py's loop workload. The reference schedule's
+# last GBA (20 LM iterations) stops short of convergence, so the ATE RMSE it
+# leaves moves by tens of percent with the RANSAC draws and the float32
+# rounding of earlier stages (PERF.md): the JAX package's CPU run leaves
+# 6.35441892882227e-06 m there (`JAX_PLATFORMS=cpu python bench.py --mode
+# loop` reports it as 0.001 cm), printed beside the card's figure for
+# information. The bar holds the figure after LOOP_EXTRA_GBAS further inline
+# GBAs of the final map within LOOP_RMSE_FACTOR of the JAX package's own CPU
+# figure after the same GBAs on the same map, as the `slow` test
+# tests/test_torch_loop_closing.py::test_bench_loop_chain_matches_jax
+# prints it
+JAX_LOOP_RMSE_AFTER = 6.35441892882227e-06
+JAX_LOOP_RMSE_CONVERGED = 2.669299647095613e-06
+LOOP_EXTRA_GBAS = 3
+LOOP_RMSE_FACTOR = 1.25
 # the frames the relocalization phase feeds a lost tracker. RELOC_FRAME is
 # the view of the map's origin keyframe, which relocalizes within 1 cm
 # under every RANSAC seed tried (test_torch_slam_system.py's 40-frame
@@ -616,6 +652,150 @@ def single_pair_phase(ck, matching, batched, desc, valid, res_batched, dev):
     return launches, report
 
 
+# float ops of one pass of the pose LM over one edge, counted from
+# csrc/pose_lm.cu at its least: the transform 18, projection and residuals
+# ~15, chi2 and the robust cost ~8, each of 2-3 Jacobian rows ~12 plus the
+# 21 entries of H and 6 of b as multiply-adds (54); a stereo edge ~220
+POSE_LM_OPS_PER_EDGE_PASS = 220
+
+
+@contextlib.contextmanager
+def recording_pose_lm(store):
+    """Keep a copy of the arguments of every ``pose_opt.pose_optimization``
+    call (the pose LM's callers reach it through the module; the kernel
+    wrapper itself stays in place, with its launch counter)."""
+    from xfeatslam_tpu_torch.optim import pose_opt
+
+    fn = pose_opt.pose_optimization
+
+    def rec(*args, **kwargs):
+        store.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args), dict(kwargs)))
+        return fn(*args, **kwargs)
+
+    pose_opt.pose_optimization = rec
+    try:
+        yield store
+    finally:
+        pose_opt.pose_optimization = fn
+
+
+def pose_problem(rng, cam, n, dev, noise_px=0.3, outlier_frac=0.0,
+                 stereo_frac=1.0, bf=BF, valid_frac=1.0):
+    """A pose-LM problem of ``n`` edges (numpy, from ``rng``): points 2-8 m
+    in front of a camera moved by a small motion, noisy pixels, a share of
+    gross outliers, stereo and valid edges at the given shares, the LM
+    started at the identity. Returns the wrapper's positional arguments."""
+    X = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    X[:, 2] = rng.uniform(2.0, 8.0, n)
+    a = np.array([0.04, -0.06, 0.03])
+    th = np.linalg.norm(a)
+    k = a / th
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    t = np.array([0.1, -0.05, 0.02])
+    Xc = X @ R.T + t
+    uv = np.stack([cam.fx * Xc[:, 0] / Xc[:, 2] + cam.cx,
+                   cam.fy * Xc[:, 1] / Xc[:, 2] + cam.cy], -1)
+    ur = uv[:, 0] - bf / Xc[:, 2]
+    uv = uv + rng.normal(0, noise_px, uv.shape)
+    n_out = int(outlier_frac * n)
+    if n_out:
+        sel = rng.choice(n, n_out, replace=False)
+        uv[sel] += (rng.uniform(20, 80, (n_out, 2))
+                    * rng.choice([-1, 1], (n_out, 2)))
+    stereo = rng.uniform(size=n) < stereo_frac
+    valid = rng.uniform(size=n) < valid_frac
+
+    def t_(x, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    return (t_(np.eye(3)), t_(np.zeros(3)), t_(X), t_(uv), t_(ur),
+            t_(np.ones(n)), t_(stereo, torch.bool), t_(valid, torch.bool),
+            cam, bf)
+
+
+def compare_pose_lm(ck, args, kwargs, label):
+    """pose_lm kernel vs its plain version on the same inputs: R and t
+    within 1e-4, inlier flags equal on >= 0.99 of the valid slots; the
+    kernel twice, bit for bit. Returns the largest pose difference."""
+    k = ck.pose_lm(*args, **kwargs)
+    k2 = ck.pose_lm(*args, **kwargs)
+    p = ck.pose_lm_plain(*args, **kwargs)
+    valid = args[7]
+    n_valid = int(valid.sum())
+    err = max(float((k[0] - p[0]).abs().max()),
+              float((k[1] - p[1]).abs().max()))
+    agree = (float((k[2] == p[2])[valid].float().mean()) if n_valid else 1.0)
+    same = all(torch.equal(a, b) for a, b in zip(k, k2))
+    print(f"pose_lm [{label}; N={valid.shape[0]}, {n_valid} valid]: R, t max "
+          f"abs err {err:.3e}, inlier agreement {agree:.6f} on valid slots, "
+          f"inliers {int(k[3])} kernel / {int(p[3])} plain, two calls "
+          f"bit-identical {same}")
+    check(bool(torch.isfinite(k[0]).all() & torch.isfinite(k[1]).all()),
+          f"pose_lm [{label}]: non-finite pose")
+    check(err <= 1e-4, f"pose_lm [{label}]: pose differs from the plain "
+          "version by more than 1e-4")
+    check(agree >= 0.99, f"pose_lm [{label}]: inlier flags disagree")
+    check(same, f"pose_lm [{label}]: two calls differ")
+    check(not bool(k[2][~valid].any()), f"pose_lm [{label}]: an invalid "
+          "slot is an inlier")
+    return err
+
+
+def pose_lm_bound(args, kwargs):
+    """The least time of one pose-LM call on these inputs: each input read
+    and each output written once, or POSE_LM_OPS_PER_EDGE_PASS float ops
+    per valid edge in each of its passes (2 schedules x rounds x (iters + 1)
+    LM passes, the two final cost passes, the classification). Valid edges
+    count in every pass, though a round's active set is smaller. Prints
+    both bounds; returns (ms, "bytes" or "operations")."""
+    N = args[2].shape[0]
+    rounds, iters = kwargs.get("rounds", 4), kwargs.get("iters", 10)
+    n_valid = int(args[7].sum())
+    nbytes = N * (3 + 2 + 1 + 1) * 4 + 2 * N + 12 * 4 + (12 * 4 + N + 4
+                                                          + 4 * N)
+    passes = 2 * rounds * (iters + 1) + 2 + 1
+    flops = passes * n_valid * POSE_LM_OPS_PER_EDGE_PASS
+    print(f"pose_lm bound at N={N}, {n_valid} valid: bytes {nbytes} -> "
+          f"{nbytes / PEAK_BYTES_PER_S * 1e3:.6f} ms, float ops {flops} -> "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.6f} ms; {passes} dependent "
+          "passes, each ending in a block reduction")
+    return bound_ms(nbytes, flops)
+
+
+def pose_lm_odd_checks(ck, cam, dev):
+    """The kernel against its plain version on odd inputs: no valid edge,
+    all mono with bf 0, 30% outliers, N not a multiple of 32, N = 2048 (the
+    relocalization pad) with 40% of it valid, and the largest N it takes.
+    Returns the largest pose difference."""
+    rng = np.random.default_rng(7)
+    cases = {
+        "no valid edge": pose_problem(rng, cam, 1000, dev, valid_frac=0.0),
+        "all mono, bf 0": pose_problem(rng, cam, 1000, dev, stereo_frac=0.0,
+                                       bf=0.0),
+        "30% outliers": pose_problem(rng, cam, 1000, dev, outlier_frac=0.3,
+                                     stereo_frac=0.7),
+        "N = 999": pose_problem(rng, cam, 999, dev, outlier_frac=0.1,
+                                stereo_frac=0.5, valid_frac=0.6),
+        "N = 2048": pose_problem(rng, cam, 2048, dev, outlier_frac=0.2,
+                                 valid_frac=0.4),
+        "N = max": pose_problem(rng, cam, ck.POSE_LM_MAX_EDGES, dev,
+                                outlier_frac=0.1, valid_frac=0.5),
+    }
+    err = 0.0
+    for label, args in cases.items():
+        err = max(err, compare_pose_lm(ck, args, {}, label))
+    try:
+        big = pose_problem(rng, cam, ck.POSE_LM_MAX_EDGES + 1, dev)
+        ck.pose_lm(*big)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "pose_lm took more edges than its kernel holds")
+    return err
+
+
 def build_map(o, depth, R, t, cam):
     """Frame 0's valid keypoints with depth, back-projected with the true
     pose (numpy): even ones fill stage 1's M1 slots, odd ones a local map
@@ -693,20 +873,21 @@ def frame_step_phase(model, ck, dev):
             has_depth=has_depth)
 
     Rg0, tg0 = (torch.from_numpy(x).to(dev) for x in seq["poses"][0])
-    # ---- frames 1-5, each from the previous estimate, counted ----
-    inputs, results, walls = [], [], []
+    # ---- frames 1-5, each from the previous estimate, counted; the pose
+    # LM's inputs of both stages kept ----
+    inputs, results, walls, lm_calls = [], [], [], []
     R, t = Rg0, tg0
-    for i in range(1, N_FRAMES):
-        ck.reset_launch_counts()
-        tw = time.perf_counter()
-        out, r1, r2 = step(i, R, t)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - tw)
-        path_counts(ck, f"frame step, frame {i}",
-                    {name: 1 for name in FRAME_STEP_KERNELS})
-        inputs.append((R, t))
-        results.append((out, r1, r2))
-        R, t = r2.R, r2.t
+    with recording_pose_lm(lm_calls):
+        for i in range(1, N_FRAMES):
+            ck.reset_launch_counts()
+            tw = time.perf_counter()
+            out, r1, r2 = step(i, R, t)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - tw)
+            path_counts(ck, f"frame step, frame {i}", FRAME_STEP_KERNELS)
+            inputs.append((R, t))
+            results.append((out, r1, r2))
+            R, t = r2.R, r2.t
     errs = []
     for i, (out, r1, r2) in zip(range(1, N_FRAMES), results):
         errs.append(center_err(r2.R, r2.t, seq["poses"][i]))
@@ -749,7 +930,8 @@ def frame_step_phase(model, ck, dev):
         ck.reset_launch_counts()
         got = track_step.fetch(replay(i, R0, t0))
         counts = path_counts(ck, f"frame step by graph replay, frame {i}", {
-            name: None if i == 1 else 1 for name in FRAME_STEP_KERNELS})
+            name: None if i == 1 else n
+            for name, n in FRAME_STEP_KERNELS.items()})
         want = track_step.fetch(res)
         differ = [f"{part}.{k}" for part, a, b in zip(("frame", "r1", "r2"),
                                                       want, got)
@@ -766,8 +948,9 @@ def frame_step_phase(model, ck, dev):
     captured = graph.captured_launches()
     print(f"frame step graph: kernel launches recorded at capture "
           f"{captured}")
-    check(captured == [{name: 1 for name in FRAME_STEP_KERNELS}],
-          "the captured frame step does not launch each kernel once")
+    check(captured == [FRAME_STEP_KERNELS],
+          "the captured frame step does not launch its kernels "
+          f"{FRAME_STEP_KERNELS}")
 
     # ---- the same frames through the plain kernels ----
     t_dev, slot_agree = 0.0, 1.0
@@ -783,6 +966,16 @@ def frame_step_phase(model, ck, dev):
           f"{t_dev:.3e}, slot agreement min {slot_agree:.6f}")
     check(t_dev <= 1e-4, "frame-step poses differ from the plain path")
     check(slot_agree >= 0.99, "frame-step slots differ from the plain path")
+
+    # ---- the pose LM kernel against its plain version: both stages'
+    # inputs of frames 1-5, then odd inputs ----
+    check(len(lm_calls) == 2 * (N_FRAMES - 1),
+          f"the frame steps made {len(lm_calls)} pose-LM calls")
+    lm_err = 0.0
+    for c, (args, kwargs) in enumerate(lm_calls):
+        lm_err = max(lm_err, compare_pose_lm(
+            ck, args, kwargs, f"frame {c // 2 + 1}, stage {c % 2 + 1}"))
+    lm_err = max(lm_err, pose_lm_odd_checks(ck, cam, dev))
 
     # ---- monocular configuration ----
     _, m1, m2 = step(1, Rg0, tg0, has_depth=False)
@@ -820,6 +1013,13 @@ def frame_step_phase(model, ck, dev):
         R1, t1, Xw, out1["kpts_un"], out1["ur"], isig,
         (out1["ur"] > 0) & edges, edges, cam, BF), iters=5, warmup=1)
     times["host_wall_per_frame"] = float(np.mean(walls[1:])) * 1e3
+    # the pose LM alone on frame 1's stage-1 inputs
+    lm_args, lm_kw = lm_calls[0]
+    times["pose_lm"] = cuda_ms(lambda: ck.pose_lm(*lm_args, **lm_kw))
+    times["pose_lm_device"] = graph_ms(lambda: ck.pose_lm(*lm_args, **lm_kw),
+                                       calls=5, replays=5)
+    times["pose_lm_plain"] = cuda_ms(
+        lambda: ck.pose_lm_plain(*lm_args, **lm_kw), iters=3, warmup=1)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -846,6 +1046,10 @@ def frame_step_phase(model, ck, dev):
           + json.dumps(dict(ops[:12])))
     print(f"frame step ms at {W}x{H}, K={K}, M1={M1}, M2={M2}, batch 1: "
           + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    return {"max_abs_err": lm_err, "ms": times["pose_lm"],
+            "device_ms": times["pose_lm_device"],
+            "plain_ms": times["pose_lm_plain"],
+            "bound": pose_lm_bound(lm_args, lm_kw)}
 
 
 def _slam_run(n_frames, seq, settings, record_ba=False, profile_from=None,
@@ -860,7 +1064,7 @@ def _slam_run(n_frames, seq, settings, record_ba=False, profile_from=None,
 
     from xfeatslam_tpu_torch.slam.system import Sensor, System
 
-    system = System(settings, Sensor.RGBD, enable_loop_closing=False)
+    system = System(settings, Sensor.RGBD, enable_loop_closing=True)
     if ba_graph is not None:
         system.local_mapping._ba_graph = ba_graph
     problems = []
@@ -953,7 +1157,8 @@ def slam_phase(ck, n_frames):
               f"OK, camera centre error max {errs.max() * 1e3:.3f} mm, median "
               f"{np.median(errs) * 1e3:.3f} mm; {st['keyframes']} keyframes, "
               f"{st['map_points']} map points; {st.get('fused_grab', 0)} "
-              f"frames through the captured step"
+              f"frames through the captured step; loops closed "
+              f"{st['loops_closed']}"
               + (f"; launches {counts}" if r is run1 else ""))
         check(r["states"] == ["OK"] * n_frames,
               f"slam {tag}: a frame was not OK: {r['states']}")
@@ -962,6 +1167,10 @@ def slam_phase(ck, n_frames):
               f"slam {tag}: median camera centre error >= 1 cm")
         check(st.get("fused_grab", 0) >= SLAM_MIN_CAPTURED,
               f"slam {tag}: too few frames through the captured step")
+        # the rendered orbit never comes back to a place it saw
+        check(st["loops_closed"] == 0 and r["system"].loop_closing is not None,
+              f"slam {tag}: loops closed {st['loops_closed']} (expected 0, "
+              "with loop closing on)")
     for tag, r in runs[1:]:
         same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
                    for a, b in zip(run1["poses"], r["poses"]))
@@ -1023,7 +1232,7 @@ def slam_phase(ck, n_frames):
         run3["profile"]["device_busy_ms"] / 1e3 / sum(walls[2:]), 4))
     print(f"slam device busy share (torch.profiler, CUDA activity, run 3, "
           f"frames 2-{n_frames - 1}): " + json.dumps(prof))
-    return run3, seq, run1["problems"]
+    return run3, seq, run1["problems"], counts
 
 
 def relocalization_phase(ck, run, seq):
@@ -1040,6 +1249,7 @@ def relocalization_phase(ck, run, seq):
 
     system = run["system"]
     tr = system.tracking
+    lm_calls = []
     kf_frames = sorted(kf.frame_id for kf in system.map.keyframes.values())
     check(RELOC_OTHER_FRAME not in kf_frames,
           f"frame {RELOC_OTHER_FRAME} is a keyframe's ({kf_frames})")
@@ -1060,8 +1270,9 @@ def relocalization_phase(ck, run, seq):
         fid = tr.pipeline._next_id
         tw = time.perf_counter()
         try:
-            got, pose = system.track_rgbd(seq["images"][i], seq["depths"][i],
-                                          t_next)
+            with recording_pose_lm(lm_calls):
+                got, pose = system.track_rgbd(seq["images"][i],
+                                              seq["depths"][i], t_next)
         finally:
             if forced:
                 del tr._track_with_motion_model, tr._track_reference_keyframe
@@ -1087,7 +1298,12 @@ def relocalization_phase(ck, run, seq):
         t_next += 1.0 / 30
     path_counts(ck, "relocalization", {name: None
                                        for name in FRAME_STEP_KERNELS})
-    return t_next, RELOC_OTHER_FRAME
+    # the pose LM kernel against its plain version on every call the
+    # relocalizations made (the relocalization LM and the tracking after)
+    check(lm_calls, "relocalization made no pose-LM call")
+    err = max(compare_pose_lm(ck, args, kwargs, f"relocalization call {c}")
+              for c, (args, kwargs) in enumerate(lm_calls))
+    return t_next, RELOC_OTHER_FRAME, err
 
 
 def localization_phase(ck, run, seq, t_next, last):
@@ -1117,6 +1333,147 @@ def localization_phase(ck, run, seq, t_next, last):
     check(system.map.num_keyframes() == kfs and system.map.num_points() == mps,
           "localization mode changed the map")
     system.deactivate_localization_mode()
+
+
+def loop_phase(model_settings, dev):
+    """Loop closing on ``bench.py --mode loop``'s workload at its full size:
+    the 40-keyframe drifted RGB-D chain of ``utils/synthetic.make_loop_map``
+    (period 36, the last 4 keyframes revisit the first, 1200 points,
+    bf 40), every keyframe fed in order to ``LoopClosing`` (fix_scale, 3
+    confirmations, the inline GBA, the 25/30 projection gates) on the card.
+    At least one loop must close and the ATE RMSE after the correction must
+    fall below the RMSE before. After LOOP_EXTRA_GBAS more inline GBAs of the
+    final map it must stay within LOOP_RMSE_FACTOR of the JAX package's CPU
+    figure after the same GBAs. The GBA's last problem is solved
+    again eagerly and by replay (bit-identical), and timed. Then the atlas
+    goes through ``System.save_atlas`` and a second System's
+    ``load_atlas``: keyframes, points, poses and the retrieval index come
+    back equal."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.optim import local_ba
+    from xfeatslam_tpu_torch.optim.track_step import fetch
+    from xfeatslam_tpu_torch.slam.loop_closing import LoopClosing
+    from xfeatslam_tpu_torch.slam.settings import Settings
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+    from xfeatslam_tpu_torch.utils.synthetic import make_loop_map
+
+    cam = Pinhole.from_list([517.3, 516.5, 318.6, 255.3])
+    t0 = time.perf_counter()
+    m, gt, est = make_loop_map(np.random.default_rng(0), n_kf=40, n_pts=1200,
+                               period=36, revisit_tail=4, bf=40.0)
+    print(f"loop: map of {m.num_keyframes()} keyframes, {m.num_points()} "
+          f"points built in {time.perf_counter() - t0:.2f} s")
+    lc = LoopClosing(m, cam, bf=40.0, fix_scale=True, confirmations=3,
+                     run_gba=True, proj_matches=25, proj_matches_strict=30,
+                     device=dev)
+    walls = []
+    for kid in sorted(m.keyframes):
+        tw = time.perf_counter()
+        lc.process_keyframe(kid)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - tw)
+
+    def rmse(pose_t):
+        return float(np.sqrt(np.mean([np.linalg.norm(pose_t(k) - gt[k][1])
+                                      ** 2 for k in m.keyframes])))
+
+    before = rmse(lambda k: est[k][1])
+    after = rmse(lambda k: m.keyframes[k].t)
+    gba = lc.ba_seconds
+    report = {
+        "closures": lc.closed, "detected": len(lc.detected),
+        "sim3_extended_pairs": lc.n_sim3_extended,
+        "ate_rmse_before_m": before, "ate_rmse_after_m": after,
+        "jax_cpu_ate_rmse_after_m": JAX_LOOP_RMSE_AFTER,
+        "ratio_to_jax": after / JAX_LOOP_RMSE_AFTER,
+        "host_ms_per_keyframe": {
+            "median": round(float(np.median(walls)) * 1e3, 4),
+            "mean": round(float(np.mean(walls)) * 1e3, 4),
+            "max": round(float(np.max(walls)) * 1e3, 4)},
+        "gba_calls_ms": [(k, round(t * 1e3, 4), c) for k, t, c in gba],
+    }
+    print("loop: " + json.dumps(report))
+    check(len(lc.closed) >= 1, "loop: no loop closed")
+    check(after < before, "loop: the ATE RMSE did not fall")
+    extra = []
+    for _ in range(LOOP_EXTRA_GBAS):
+        lc.global_bundle_adjust()
+        extra.append(rmse(lambda k: m.keyframes[k].t))
+    converged = extra[-1]
+    print("loop: " + json.dumps({
+        f"ate_rmse_after_{LOOP_EXTRA_GBAS}_more_gbas_m": converged,
+        "ate_rmse_after_each_gba_m": extra,
+        "jax_cpu_ate_rmse_converged_m": JAX_LOOP_RMSE_CONVERGED,
+        "ratio_to_jax_converged": converged / JAX_LOOP_RMSE_CONVERGED}))
+    check(converged <= LOOP_RMSE_FACTOR * JAX_LOOP_RMSE_CONVERGED,
+          f"loop: ATE RMSE after {LOOP_EXTRA_GBAS} more GBAs {converged} m "
+          f"above {LOOP_RMSE_FACTOR} x the JAX package's "
+          f"{JAX_LOOP_RMSE_CONVERGED} m")
+
+    # the GBA's last problem again: eager, replay, bit for bit; ms; kernels
+    built = lc._build_gba(65536, 262144)
+    check(built is not None, "loop: no GBA problem")
+    prob = built[0]
+    graph = lc._ba_graph
+    eager = fetch(local_ba.bundle_adjust(prob, cam, 40.0,
+                                         stage_iters=(10, 10)))
+    replay = fetch(graph(prob, cam, 40.0, stage_iters=(10, 10)))
+    same = all(np.array_equal(a, b) for a, b in zip(eager, replay))
+    times = {
+        "gba_eager_ms": cuda_ms(lambda: local_ba.bundle_adjust(
+            prob, cam, 40.0, stage_iters=(10, 10)), iters=2, warmup=1),
+        "gba_replay_ms": cuda_ms(lambda: graph(prob, cam, 40.0,
+                                               stage_iters=(10, 10)),
+                                 iters=5, warmup=1)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph(prob, cam, 40.0, stage_iters=(10, 10))
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA)
+    print(f"loop GBA ({tuple(prob.R.shape)[0]} cameras, {prob.X.shape[0]} "
+          f"points, {prob.obs_cam.shape[0]} observations, 20 LM "
+          f"iterations): replay bit-identical to eager {same}; "
+          f"{kernels} device events per replay; "
+          + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    check(same, "loop: the GBA replay differs from the eager solve")
+
+    # the atlas through System.save_atlas / load_atlas
+    settings = Settings(cam=cam, bf=40.0, depth_map_factor=1.0,
+                        n_features=model_settings.n_features)
+    a = System(settings, Sensor.RGBD, enable_loop_closing=True)
+    m.map_id = a.map.map_id
+    a.atlas.maps = {m.map_id: m}
+    a.loop_closing.retrieval = lc.retrieval
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "loop.osa")
+        a.save_atlas(path)
+        b = System(settings, Sensor.RGBD, enable_loop_closing=True)
+        b.load_atlas(path)
+        size = os.path.getsize(path)
+    mb = b.map
+    n = m.points.n
+    same_kfs = sorted(m.keyframes) == sorted(mb.keyframes) and all(
+        np.array_equal(getattr(m.keyframes[k], f), getattr(mb.keyframes[k], f))
+        for k in m.keyframes
+        for f in ("R", "t", "kpts_un", "desc", "valid", "ur", "depth",
+                  "mp_ids", "global_desc"))
+    same_pts = n == mb.points.n and all(
+        np.array_equal(getattr(m.points, f)[:n], getattr(mb.points, f)[:n])
+        for f in ("pos", "desc", "alive")) and m.obs == mb.obs
+    ra, rb = lc.retrieval, b.loop_closing.retrieval
+    same_index = sorted(ra._index) == sorted(rb._index) and all(
+        np.array_equal(ra.descs[ra._index[key]], rb.descs[rb._index[key]])
+        for key in ra._index) and b.tracking.retrieval is rb
+    print(f"loop atlas ({size} bytes) through save_atlas / load_atlas: "
+          f"keyframes and poses equal {same_kfs}, points equal {same_pts}, "
+          f"retrieval index equal {same_index}")
+    check(same_kfs and same_pts and same_index,
+          "loop: the atlas did not come back equal")
 
 
 def full_ba_problem(cam, bf, dev, n_cams=32, n_pts=4096, per_point=4,
@@ -1448,12 +1805,15 @@ def run(batch: int):
     print("kernels: " + json.dumps(launches))
 
     # ---- the online RGB-D frame step ----
-    frame_step_phase(model, ck, dev)
+    lm_report = frame_step_phase(model, ck, dev)
 
     # ---- the RGB-D SLAM host, three runs; relocalization; localization ----
-    run, seq, problems = slam_phase(ck, SLAM_FRAMES)
-    t_next, last = relocalization_phase(ck, run, seq)
+    run, seq, problems, slam_launches = slam_phase(ck, SLAM_FRAMES)
+    t_next, last, reloc_lm_err = relocalization_phase(ck, run, seq)
     localization_phase(ck, run, seq, t_next, last)
+
+    # ---- loop closing on bench.py's loop workload; the atlas files ----
+    loop_phase(run["system"].settings, dev)
 
     # ---- local BA on the card, eager and by graph replay ----
     local_ba_phase(problems, run["system"].settings, dev)
@@ -1558,6 +1918,18 @@ def run(batch: int):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times[t_l] if t_l else None,
         })
+    # the pose LM: launches on the SLAM path (System.track_rgbd, run 1, two
+    # per frame step, replays included); its numbers from the frame-step
+    # phase; no single PyTorch call computes it
+    src, rep = KERNEL_SOURCES["pose_lm"]
+    b_ms, b_by = lm_report["bound"]
+    rows_out.append({
+        "name": "pose_lm", "route": "cuda", "source": src, "replaces": rep,
+        "launches": slam_launches["pose_lm"],
+        "max_abs_err": max(lm_report["max_abs_err"], reloc_lm_err),
+        "ms": lm_report["ms"], "plain_ms": lm_report["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
     print(json.dumps({"kernels": rows_out}))
 
 

@@ -295,4 +295,5 @@ def test_cpu_calls_launch_no_kernel(rng):
                                   "bilinear_desc_sample": 0,
                                   "keypoint_desc": 0,
                                   "mutual_nn_pairs": 0,
-                                  "similarity_top2": 0}
+                                  "similarity_top2": 0,
+                                  "pose_lm": 0}

@@ -121,11 +121,12 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch.ops import lie, camera\n"
         "from xfeatslam_tpu_torch.ops import geometry\n"
         "from xfeatslam_tpu_torch.optim import pose_opt, track_step, local_ba\n"
-        "from xfeatslam_tpu_torch.optim import pnp\n"
+        "from xfeatslam_tpu_torch.optim import pnp, pose_graph, sim3\n"
         "from xfeatslam_tpu_torch.parallel import batched\n"
         "from xfeatslam_tpu_torch.utils import synthetic, io, timing, verbose\n"
         "from xfeatslam_tpu_torch.slam import (atlas, frame, local_mapping,\n"
-        "    map, retrieval, settings, system, tracking)\n"
+        "    loop_closing, map, retrieval, serialization, settings, system,\n"
+        "    tracking)\n"
         "from xfeatslam_tpu_torch.examples import rgbd_tum\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"

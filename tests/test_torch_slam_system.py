@@ -36,6 +36,8 @@ from xfeatslam_tpu.utils import synthetic as jsyn  # noqa: E402
 from xfeatslam_tpu_torch.ops import camera as tc  # noqa: E402
 from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from xfeatslam_tpu_torch.optim import track_step  # noqa: E402
+from xfeatslam_tpu_torch.slam import map as tmap  # noqa: E402
+from xfeatslam_tpu_torch.slam import serialization as tser  # noqa: E402
 from xfeatslam_tpu_torch.slam import settings as tset  # noqa: E402
 from xfeatslam_tpu_torch.slam import system as tsys  # noqa: E402
 from xfeatslam_tpu_torch.examples import rgbd_tum  # noqa: E402
@@ -156,24 +158,39 @@ def _settings():
     (dict(sensor=tsys.Sensor.IMU_STEREO), "15"),
     (dict(sensor=tsys.Sensor.IMU_RGBD), "15"),
     (dict(backend="orb"), "13"),
-    (dict(enable_loop_closing=True), "11"),
+    # loop closing is ported; its inertial branch (the 4-DoF essential
+    # graph of an IMU-initialized map) is not
+    (dict(enable_loop_closing=True, imu_initialized=True), "15"),
     (dict(viewer_dir="/nonexistent"), "16"),
 ])
 def test_unported_configurations_raise(kwargs, item):
     kw = dict(enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     sensor = kw.pop("sensor", tsys.Sensor.RGBD)
+    inertial = kw.pop("imu_initialized", False)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tsys.System(_settings(), sensor, **kw)
+        system = tsys.System(_settings(), sensor, **kw)
+        if inertial:
+            system.map.imu_initialized = True
+            system.loop_closing._optimize_essential_graph(
+                0, 0, 1.0, np.eye(3, dtype=np.float32),
+                np.zeros(3, np.float32))
 
 
 def test_unported_paths_raise(runs, tmp_path):
     ts = runs["port_sys"]
-    for call in (lambda: ts.save_atlas(str(tmp_path / "a.zip")),
-                 lambda: ts.load_atlas(str(tmp_path / "a.zip")),
-                 ts.refit_retrieval_codebook):
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            call()
+    # the atlas files are ported; a keyframe's inertial preintegration in
+    # them is not
+    m = tmap.SlamMap()
+    m.add_keyframe(tmap.KeyFrame(
+        kid=0, frame_id=0, timestamp=0.0,
+        kpts_un=np.zeros((4, 2), np.float32),
+        desc=np.zeros((4, 64), np.float32), valid=np.ones(4, bool),
+        ur=np.full(4, -1.0, np.float32), depth=np.zeros(4, np.float32),
+        R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
+        pre_kf=object()))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tser.save_map(m, str(tmp_path / "m.npz"))
     with pytest.raises(NotImplementedError, match="item 16"):
         ts.export_map_html(str(tmp_path / "map.html"))
     with pytest.raises(NotImplementedError, match="item 10"):

@@ -3,11 +3,11 @@
 The port's twin of ``examples/rgbd_tum.py --synthetic N --out DIR``:
 
     python -m xfeatslam_tpu_torch.examples.rgbd_tum --synthetic 60 --out DIR
-        [--device cpu] [--size 480x640] [--features 1000]
+        [--device cpu] [--size 480x640] [--features 1000] [--no-loop]
 
 Renders N frames of ``utils/synthetic.make_sequence`` (TUM1 intrinsics
-scaled to the size), tracks them with ``System.track_rgbd`` (no loop
-closing), writes ``CameraTrajectory.txt`` and ``KeyFrameTrajectory.txt``
+scaled to the size), tracks them with ``System.track_rgbd`` (loop
+closing on unless ``--no-loop``), writes ``CameraTrajectory.txt`` and ``KeyFrameTrajectory.txt``
 in TUM format, and prints the median and mean tracking time and the ATE
 against the rendered truth. The device defaults to CUDA. The TUM-dataset
 mode (settings YAML, sequence directory, association file) reads PNGs and
@@ -33,6 +33,7 @@ def main(argv=None):
     ap.add_argument("--synthetic", type=int, default=0,
                     help="run N rendered frames")
     ap.add_argument("--out", default=".")
+    ap.add_argument("--no-loop", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--size", default="480x640", help="HxW of the frames")
@@ -65,8 +66,8 @@ def main(argv=None):
         bf=40.0 * s, th_depth=7.0, depth_map_factor=1.0, fps=30.0,
         n_features=args.features)
     os.makedirs(args.out, exist_ok=True)
-    system = System(settings, Sensor.RGBD, enable_loop_closing=False,
-                    device=args.device)
+    system = System(settings, Sensor.RGBD,
+                    enable_loop_closing=not args.no_loop, device=args.device)
 
     times = []
     n = args.synthetic
@@ -80,6 +81,8 @@ def main(argv=None):
                   f"kfs={system.map.num_keyframes()} "
                   f"mps={system.map.num_points()}", flush=True)
 
+    # finish an in-flight post-loop GBA before the trajectories are saved
+    stats = system.shutdown()
     cam_path = os.path.join(args.out, "CameraTrajectory.txt")
     system.save_trajectory_tum(cam_path)
     system.save_keyframe_trajectory_tum(
@@ -88,7 +91,7 @@ def main(argv=None):
     print("-------")
     print(f"median tracking time: {np.median(times):.4f}")
     print(f"mean tracking time: {np.mean(times):.4f}")
-    print("stats:", system.shutdown())
+    print("stats:", stats)
     est_t, est = io_utils.load_trajectory_tum(cam_path)
     gt_xyz = np.stack([-R.T @ t for (R, t) in seq["poses"]])
     rmse = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz, est_t,

@@ -16,6 +16,9 @@ Kernels:
                         the decode and taps of detect.py:462-503)
   mutual_nn_pairs       csrc/mnn_pairs.cu          (pallas_kernels.py:595)
   similarity_top2       csrc/mnn_pairs.cu          (pallas_kernels.py:84)
+  pose_lm               csrc/pose_lm.cu            (optim/pose_opt.py:82, XLA
+                        code in the JAX package, not Pallas: the pose LM
+                        in one launch in place of ~20,000 small kernels)
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import lie
+from .camera import Pinhole, pinhole_project, pinhole_project_jac
 
 # Per-cell candidate slots: 5x5 NMS forces >= 3 px spacing, so an 8x8 cell
 # holds at most ceil(8/3)^2 = 9 distinct-score survivors.
@@ -53,6 +58,7 @@ _ENTRY_POINTS = {
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "similarity_top2": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "mnn_row_tile": ("mnn_pairs", [_I, _I]),  # host only, no stream
+    "pose_lm": ("pose_lm", [_P] * 13 + [_I, _I, _I, _F, _F, _F, _F, _F, _P]),
 }
 _entries: dict = {}
 
@@ -448,8 +454,203 @@ def mutual_nn_top2(desc_a, desc_b, valid_a, valid_b):
     return d1, d2, i1, col_best
 
 
+# ---------------------------------------------------------------------------
+# 5. pose_lm: the robust pose LM (Optimizer::PoseOptimization)
+
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+# edges one launch takes: a 32-bit mask of active edges per thread of a
+# 256-thread half (kMaxEdges in csrc/pose_lm.cu)
+POSE_LM_MAX_EDGES = 8192
+
+
+def _pose_errors(R, t, Xw, obs_uv, obs_ur, cam: Pinhole, bf):
+    """Batched mono+stereo residuals e (N,3) = [obs_uv - uv, obs_ur - uR],
+    with the virtual right u, uR = u - bf/z; also the camera-frame points
+    and 1/z."""
+    Xc = lie.se3_apply(R, t, Xw)
+    uv = pinhole_project(cam, Xc)
+    z = Xc[..., 2]
+    inv_z = 1.0 / torch.where(z.abs() < 1e-6, 1e-6, z)
+    e_ur = obs_ur - (uv[..., 0] - bf * inv_z)
+    return torch.cat([obs_uv - uv, e_ur[..., None]], -1), Xc, inv_z
+
+
+def _pose_residuals(R, t, Xw, obs_uv, obs_ur, cam: Pinhole, bf):
+    """Residuals e (N,3) and Jacobians J (N,3,6) with respect to
+    [rho, phi]; the third row belongs to stereo edges only (the caller's
+    weighting zeroes it for mono edges)."""
+    e, Xc, inv_z = _pose_errors(R, t, Xw, obs_uv, obs_ur, cam, bf)
+    Jproj = pinhole_project_jac(cam, Xc)  # (N,2,3)
+    zero = torch.zeros_like(inv_z)
+    # d uR/dXc = du/dXc + [0, 0, bf/z^2]
+    dur = Jproj[:, 0, :] + torch.stack([zero, zero, bf * inv_z * inv_z], -1)
+    Jc = torch.cat([Jproj, dur[:, None, :]], 1)  # (N,3,3)
+    # dXc/d[rho,phi] = [I | -hat(Xc)]
+    eye = torch.eye(3, dtype=Xc.dtype, device=Xc.device).expand(
+        Xc.shape[:-1] + (3, 3))
+    dXc = torch.cat([eye, -lie.so3_hat(Xc)], -1)  # (N,3,6)
+    return e, -lie.mat_mul(Jc, dXc)
+
+
+def _edge_chi2(e, inv_sigma2, is_stereo):
+    """Per-edge chi2 = e^T Omega e, the third row dropped for mono edges."""
+    e2 = e * e
+    mono = e2[..., 0] + e2[..., 1]
+    return torch.where(is_stereo, mono + e2[..., 2], mono) * inv_sigma2
+
+
+def pose_lm_plain(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid,
+                  cam: Pinhole, bf: float = 0.0, rounds: int = 4,
+                  iters: int = 10):
+    """Plain version: the schedules as ~250 tensor ops per LM iteration.
+    Everything stays on the device: accept/reject and the final pick are
+    ``torch.where`` selections, the 6x6 solve is ``torch.linalg.solve_ex``
+    (no error check, hence no host sync), and the iteration counts are
+    Python constants."""
+    delta_base = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
+    ones = torch.ones_like(inv_sigma2)
+    row_mask3 = torch.stack([ones, ones, is_stereo.to(inv_sigma2.dtype)], -1)
+
+    def chi2_at(R, t):
+        e, _, _ = _pose_errors(R, t, Xw, obs_uv, obs_ur, cam, bf)
+        return _edge_chi2(e, inv_sigma2, is_stereo)
+
+    def robust_cost(chi2, use_huber: bool, dscale: float):
+        if not use_huber:
+            return chi2
+        delta2 = delta_base * dscale
+        return torch.where(chi2 <= delta2, chi2,
+                           2.0 * torch.sqrt(delta2 * chi2.clamp(min=0.0))
+                           - delta2)
+
+    def total_cost(R, t, active, use_huber: bool, dscale: float = 1.0):
+        cost = robust_cost(chi2_at(R, t), use_huber, dscale)
+        return torch.where(active, cost, 0.0).sum()
+
+    def normal_equations(R, t, active, use_huber: bool, dscale: float):
+        e, J = _pose_residuals(R, t, Xw, obs_uv, obs_ur, cam, bf)
+        chi2 = _edge_chi2(e, inv_sigma2, is_stereo)
+        w = inv_sigma2 * active
+        if use_huber:
+            delta2 = delta_base * dscale
+            w = w * torch.where(chi2 <= delta2, 1.0,
+                                torch.sqrt(delta2 / chi2.clamp(min=1e-12)))
+        Jw = J * (w[:, None] * row_mask3)[..., None]  # (N,3,6)
+        H = (Jw[..., :, None] * J[..., None, :]).sum((0, 1))
+        b = -(Jw * e[..., None]).sum((0, 1))  # solve H dx = -J^T W e
+        return H, b
+
+    eye6 = torch.eye(6, dtype=Xw.dtype, device=Xw.device)
+
+    def lm_round(R, t, active, use_huber: bool, dscale: float):
+        lam = torch.full((), 1e-3, dtype=Xw.dtype, device=Xw.device)
+        # the cost of the current pose: recomputed at the top of every
+        # iteration in the JAX version, it equals the carried value (the
+        # accepted cost1 or the unchanged cost0), so it is carried here
+        cost0 = total_cost(R, t, active, use_huber, dscale)
+        for _ in range(iters):
+            H, b = normal_equations(R, t, active, use_huber, dscale)
+            # Marquardt scaling lam*diag(H), then Jacobi preconditioning:
+            # the raw system mixes px^2/rad^2 and px^2/m^2 scales
+            Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-6 * eye6
+            s = torch.rsqrt(torch.diagonal(Hd) + 1e-12)
+            Hs = Hd * s[:, None] * s[None, :]
+            dx = torch.linalg.solve_ex(Hs, b * s)[0] * s
+            dR, dt = lie.se3_exp(dx)
+            Rn, tn = lie.se3_compose(dR, dt, R, t)
+            cost1 = total_cost(Rn, tn, active, use_huber, dscale)
+            accept = (cost1 < cost0) & torch.isfinite(dx).all()
+            R = torch.where(accept, Rn, R)
+            t = torch.where(accept, tn, t)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0)
+            cost0 = torch.where(accept, cost1, cost0)
+        return R, t
+
+    def schedule(dscales, huber_flags):
+        R, t = R0, t0
+        active = valid
+        for rnd in range(rounds):
+            R, t = lm_round(R, t, active, huber_flags[rnd], dscales[rnd])
+            active = valid & (chi2_at(R, t)
+                              <= delta_base * dscales[min(rnd + 1, rounds - 1)])
+        return R, t
+
+    # candidate A: the reference's schedule (Huber for 2 rounds, then plain)
+    Ra, ta = schedule((1.0,) * rounds, (True, True) + (False,) * (rounds - 2))
+    # candidate B: graduated non-convexity, progressively tightening Huber
+    # widths from the same prediction; it escapes secondary minima a few cm
+    # from the truth, which have the higher final robust cost
+    gnc = ((25.0, 9.0, 3.0) + (1.0,) * max(rounds - 3, 0))[:rounds]
+    Rb, tb = schedule(gnc, (True,) * rounds)
+
+    cost_a = total_cost(Ra, ta, valid, True)
+    cost_b = total_cost(Rb, tb, valid, True)
+    pick_b = (cost_b < cost_a) & torch.isfinite(tb).all()
+    R = torch.where(pick_b, Rb, Ra)
+    t = torch.where(pick_b, tb, ta)
+
+    chi2 = chi2_at(R, t)
+    active = valid & (chi2 <= delta_base)
+    return R, t, active, active.sum(dtype=torch.int32), chi2
+
+
+def pose_lm(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid,
+            cam: Pinhole, bf: float = 0.0, rounds: int = 4, iters: int = 10):
+    """The robust pose LM of ``optim/pose_opt.pose_optimization`` in one
+    launch: both schedules (one per half of one CTA), their rounds and LM
+    iterations, the pick and the final classification.
+
+    Args:
+      R0 (3,3), t0 (3,) float32: the initial pose Tcw.
+      Xw (N,3), obs_uv (N,2), obs_ur (N,), inv_sigma2 (N,) float32.
+      is_stereo, valid (N,) bool.
+      cam: a Pinhole (its distortion is not used); bf a number.
+    Returns (R, t, inliers (N,) bool, num_inliers () int32, chi2 (N,)).
+    Deterministic: a fixed summation order, no atomics."""
+    if not _on_cuda(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo,
+                    valid):
+        return pose_lm_plain(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2,
+                             is_stereo, valid, cam, bf, rounds, iters)
+    # the frame step passes views (a transposed rotation, slices): the
+    # kernel reads packed rows, so take packed copies where needed
+    R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid = (
+        x.contiguous() for x in (R0, t0, Xw, obs_uv, obs_ur, inv_sigma2,
+                                 is_stereo, valid))
+    N = Xw.shape[0]
+    _check(R0, "R0", torch.float32, (3, 3))
+    _check(t0, "t0", torch.float32, (3,))
+    _check(Xw, "Xw", torch.float32, (N, 3))
+    _check(obs_uv, "obs_uv", torch.float32, (N, 2))
+    _check(obs_ur, "obs_ur", torch.float32, (N,))
+    _check(inv_sigma2, "inv_sigma2", torch.float32, (N,))
+    _check(is_stereo, "is_stereo", torch.bool, (N,))
+    _check(valid, "valid", torch.bool, (N,))
+    if N > POSE_LM_MAX_EDGES:
+        raise ValueError(f"pose_lm: {N} edges exceed the kernel's "
+                         f"{POSE_LM_MAX_EDGES}")
+    if rounds < 0 or iters < 0:
+        raise ValueError("pose_lm: rounds and iters must be >= 0")
+    dev = Xw.device
+    R = torch.empty((3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty(3, dtype=torch.float32, device=dev)
+    inliers = torch.empty(N, dtype=torch.bool, device=dev)
+    num_inliers = torch.empty((), dtype=torch.int32, device=dev)
+    chi2 = torch.empty(N, dtype=torch.float32, device=dev)
+    _launch("pose_lm", Xw.get_device(), _ptr(R0), _ptr(t0), _ptr(Xw),
+            _ptr(obs_uv), _ptr(obs_ur), _ptr(inv_sigma2), _ptr(is_stereo),
+            _ptr(valid), _ptr(R), _ptr(t), _ptr(inliers), _ptr(num_inliers),
+            _ptr(chi2), N, int(rounds), int(iters), float(cam.fx),
+            float(cam.fy), float(cam.cx), float(cam.cy), float(bf))
+    pose_lm.launches += 1
+    return R, t, inliers, num_inliers, chi2
+
+
+pose_lm.launches = 0
+
+
 _WRAPPERS = (detect_candidates, bilinear_desc_sample, keypoint_desc,
-             mutual_nn_pairs, similarity_top2)
+             mutual_nn_pairs, similarity_top2, pose_lm)
 
 
 def launch_counts() -> dict:

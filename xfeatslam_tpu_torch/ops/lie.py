@@ -1,10 +1,11 @@
 """SO3 / SE3 Lie-group operations on tensors.
 
-Counterpart of the SO3 and SE3 part of ``xfeatslam_tpu/ops/lie.py`` (Sim3
-comes with the loop-closing slice). Conventions, as there:
+Counterpart of ``xfeatslam_tpu/ops/lie.py``. Conventions, as there:
   * rotations are 3x3 matrices; an SE3 element is the pair (R, t) with
-    x_out = R @ x + t;
-  * se3 tangent vectors are [rho(3), phi(3)] (translation first);
+    x_out = R @ x + t, a Sim3 element the triple (s, R, t) with
+    x_out = s R @ x + t;
+  * se3 tangent vectors are [rho(3), phi(3)] (translation first), sim3
+    ones [rho(3), phi(3), sigma(1)] with s = exp(sigma);
   * every function broadcasts over leading batch dimensions, and the
     small-angle branches are selected with ``torch.where`` (no host sync).
 
@@ -229,3 +230,80 @@ def np_normalize_rotation(R):
         u[..., :, 2] *= -1.0
         Rn = u @ vt
     return Rn.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Sim3
+
+
+def _sim3_W(phi, sigma):
+    """The Sim3 'W' matrix: t = W @ rho for exp([rho, phi, sigma]).
+
+    W = C*I + (A/theta)*Phi + (Bc/theta^2)*Phi^2 where
+      C  = int_0^1 e^{sigma u} du
+      A  = int_0^1 e^{sigma u} sin(theta u) du
+      Bc = int_0^1 e^{sigma u} (1 - cos(theta u)) du
+    in closed form, with Taylor branches for small sigma and theta."""
+    theta2 = (phi * phi).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    s = torch.exp(sigma)
+    sigma2 = sigma * sigma
+    small_sigma = sigma.abs() < 1e-4
+    small_theta = theta2 < 1e-8
+
+    C = torch.where(small_sigma, 1.0 + 0.5 * sigma + sigma2 / 6.0,
+                    _safe_div(s - 1.0, sigma))
+    denom = sigma2 + theta2
+    # closed forms (valid when denom > 0)
+    A_cf = _safe_div(s * (sigma * torch.sin(theta) - theta * torch.cos(theta))
+                     + theta, denom)
+    D_cf = _safe_div(s * (sigma * torch.cos(theta) + theta * torch.sin(theta))
+                     - sigma, denom)
+    Bc_cf = C - D_cf
+    # Taylor in theta, any sigma: A ~ theta E1, Bc ~ theta^2/2 E2 with
+    # E1 = int e^{su} u du, E2 = int e^{su} u^2 du
+    E1 = torch.where(small_sigma, 0.5 + sigma / 3.0 + sigma2 / 8.0,
+                     _safe_div(s * (sigma - 1.0) + 1.0, sigma2))
+    E2 = torch.where(small_sigma, 1.0 / 3.0 + sigma / 4.0 + sigma2 / 10.0,
+                     _safe_div(s * (sigma2 - 2.0 * sigma + 2.0) - 2.0,
+                               sigma2 * sigma))
+    A = torch.where(small_theta, theta * E1, A_cf)
+    Bc = torch.where(small_theta, 0.5 * theta2 * E2, Bc_cf)
+    # the exact small-theta limits of the coefficients
+    coef1 = torch.where(small_theta, E1, _safe_div(A, theta))
+    coef2 = torch.where(small_theta, 0.5 * E2, _safe_div(Bc, theta2))
+    Phi = so3_hat(phi)
+    return (C[..., None, None] * _eye_like(phi, Phi.shape)
+            + coef1[..., None, None] * Phi
+            + coef2[..., None, None] * mat_mul(Phi, Phi))
+
+
+def sim3_exp(xi):
+    """sim3 tangent [rho(3), phi(3), sigma(1)] (...,7) -> (s, R, t)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return (torch.exp(sigma), so3_exp(phi),
+            mat_vec(_sim3_W(phi, sigma), rho))
+
+
+def sim3_log(s, R, t):
+    """(s, R, t) -> tangent (...,7); rho solves W rho = t."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    W = _sim3_W(phi, sigma)
+    rho = torch.linalg.solve(W, t[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], -1)
+
+
+def sim3_compose(sa, Ra, ta, sb, Rb, tb):
+    """(a o b): x -> sa Ra (sb Rb x + tb) + ta."""
+    return sa * sb, mat_mul(Ra, Rb), sa[..., None] * mat_vec(Ra, tb) + ta
+
+
+def sim3_inverse(s, R, t):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -s_inv[..., None] * mat_vec(Rt, t)
+
+
+def sim3_apply(s, R, t, x):
+    return s[..., None] * mat_vec(R, x) + t

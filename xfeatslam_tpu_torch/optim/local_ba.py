@@ -25,6 +25,7 @@ in the JAX package's order (``_planned``).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,7 +34,7 @@ import torch
 from ..ops import lie
 from ..ops.camera import Pinhole, pinhole_project_jac
 from ..ops.lie import mat_mul, mat_vec
-from .track_step import CapturedCalls
+from .track_step import CapturedCalls, fetch
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -364,3 +365,19 @@ class LocalBAGraph(CapturedCalls):
                                  huber=static[4])
 
         return self.replay(static, _problem_tensors(prob), run)
+
+
+def timed_solve(graph: Optional[LocalBAGraph], prob: BAProblem, cam: Pinhole,
+                bf: float, stage_iters: Tuple[int, int], log: list,
+                stage: str) -> BAResult:
+    """One BA solve read to the host (a numpy ``BAResult``): the replay of
+    ``graph`` on the card, the eager solve without one (on the CPU).
+    Appends (stage, host seconds, whether the call captured a graph) to
+    ``log``."""
+    n = len(graph.capture_seconds) if graph is not None else 0
+    t0 = time.perf_counter()
+    res = fetch((graph or bundle_adjust)(prob, cam, bf,
+                                         stage_iters=stage_iters))
+    captured = graph is not None and len(graph.capture_seconds) > n
+    log.append((stage, time.perf_counter() - t0, captured))
+    return res

@@ -14,7 +14,6 @@ culling rules) waits for ROADMAP item 15.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -98,14 +97,8 @@ class LocalMapping:
     def _solve(self, prob, stage: str, stage_iters):
         """One BA round, read to the host: the graph's replay on the card,
         the eager solve on the CPU."""
-        g = self._ba_graph
-        n = len(g.capture_seconds) if g is not None else 0
-        t0 = time.perf_counter()
-        res = fetch((g or ba.bundle_adjust)(prob, self.cam, self.bf,
-                                            stage_iters=stage_iters))
-        captured = g is not None and len(g.capture_seconds) > n
-        self.ba_seconds.append((stage, time.perf_counter() - t0, captured))
-        return res
+        return ba.timed_solve(self._ba_graph, prob, self.cam, self.bf,
+                              stage_iters, self.ba_seconds, stage)
 
     # -- LocalBundleAdjustment (Optimizer::LocalBundleAdjustment) -----------
 

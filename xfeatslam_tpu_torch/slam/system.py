@@ -1,18 +1,19 @@
-"""System: the public session facade, RGB-D without loop closing.
+"""System: the public session facade, RGB-D.
 
 Counterpart of ``xfeatslam_tpu/slam/system.py`` (the role of ORB-SLAM3's
 System.cc): build the pipeline (extractor, atlas, tracking, local
-mapping), accept frames, return poses, save trajectories. Local mapping
-runs as budgeted synchronous steps after each tracked frame, as in the
-JAX package.
+mapping, loop closing), accept frames, return poses, save trajectories
+and atlas files. Local mapping runs as budgeted synchronous steps after
+each tracked frame, as in the JAX package; loop closing checks every new
+keyframe, and its global BA after a loop runs its later rounds one per
+frame.
 
 The device work runs on ``device``: CUDA unless the caller asks for the
 CPU, and without a GPU the default raises. Localization mode, the
 trajectory savers and the tracked-state getters are here. Not ported yet,
 each raising ``NotImplementedError`` with its ROADMAP item: the monocular,
-stereo and inertial sensors (items 12, 14, 15), the ORB backend (item 13),
-loop closing and the atlas files (item 11b) and the viewer and map export
-(item 16).
+stereo and inertial sensors (items 12, 14, 15), the ORB backend (item 13)
+and the viewer and map export (item 16).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ from ..utils.timing import StageTimer
 from .atlas import Atlas
 from .frame import FramePipeline
 from .local_mapping import LocalMapping
+from .loop_closing import LoopClosing
+from .retrieval import (Retrieval, aggregate_global_desc, fit_codebook,
+                        global_desc_dim, use_codebook)
 from .settings import Settings
 from .tracking import State, TrackerConfig, Tracking
 
@@ -62,9 +66,8 @@ class System:
                  viewer_dir: Optional[str] = None,
                  viewer_port: Optional[int] = None, device=None):
         """backend: "xfeat" (the default; "orb" is not ported).
-        enable_loop_closing defaults to True as in the JAX package, where
-        it builds LoopClosing; here it must be False until loop closing is
-        ported. device: where the tensors live, CUDA unless given."""
+        enable_loop_closing (with mapping) builds LoopClosing, as in the
+        JAX package. device: where the tensors live, CUDA unless given."""
         if sensor in _UNPORTED_SENSORS:
             raise NotImplementedError(
                 f"sensor {sensor.name}: {_UNPORTED_SENSORS[sensor]}")
@@ -74,10 +77,6 @@ class System:
             raise NotImplementedError(
                 f"backend {backend!r}: the ORB backend waits for ROADMAP "
                 "item 13")
-        if enable_loop_closing and enable_mapping:
-            raise NotImplementedError(
-                "loop closing waits for ROADMAP item 11b; pass "
-                "enable_loop_closing=False")
         if viewer_dir is not None or viewer_port is not None:
             raise NotImplementedError("the viewer waits for ROADMAP item 16")
         self.device = resolve_device(device)
@@ -99,11 +98,22 @@ class System:
         )
         cfg = TrackerConfig(fps=settings.fps, th_depth=settings.th_depth,
                             th_far_points=settings.th_far_points)
+        self.loop_closing = None
+        if enable_loop_closing and enable_mapping:
+            # RGB-D: the scale is observable
+            self.loop_closing = LoopClosing(
+                self.map, settings.cam, bf=settings.bf, fix_scale=True,
+                atlas=self.atlas, device=self.device)
+            # the post-loop GBA runs budgeted: the robust stage at the loop
+            # frame, the remaining rounds one per frame through tick()
+            self.loop_closing.gba_budget_rounds = 3
         # relocalization queries loop closing's keyframe database; without
         # loop closing it has none
-        self.tracking = Tracking(self.pipeline, self.map, settings.cam, cfg,
-                                 atlas=self.atlas, timer=self.timer,
-                                 retrieval=None)
+        self.tracking = Tracking(
+            self.pipeline, self.map, settings.cam, cfg, atlas=self.atlas,
+            timer=self.timer,
+            retrieval=(self.loop_closing.retrieval
+                       if self.loop_closing is not None else None))
         self.local_mapping = None
         if enable_mapping:
             self.local_mapping = LocalMapping(self.map, settings.cam,
@@ -133,6 +143,9 @@ class System:
             if self.local_mapping is not None:
                 self.local_mapping.map = self.map
                 self.local_mapping.recent_points.clear()
+            if self.loop_closing is not None:
+                # one retrieval index across the atlas: keep its entries
+                self.loop_closing.map = self.map
 
     def _run_backend(self):
         self._sync_active_map()
@@ -145,16 +158,52 @@ class System:
             if kid not in self.map.keyframes:
                 continue
             self.local_mapping.process_keyframe(kid)
+            if self.loop_closing is not None:
+                self.loop_closing.process_keyframe(kid)
             ran = True
-        if not ran and self.local_mapping._ba_session is not None:
-            # no KF this frame: advance the budgeted local BA by one round
-            # (the background thread's time slice)
-            self.local_mapping.tick()
-            ran = True
+        if not ran:
+            # no KF this frame: advance one budgeted backend session by one
+            # round (the background thread's time slice): local BA first,
+            # else an in-flight post-loop GBA
+            if self.local_mapping._ba_session is not None:
+                self.local_mapping.tick()
+                ran = True
+            elif (self.loop_closing is not None
+                  and self.loop_closing._gba_session is not None):
+                self.loop_closing.tick()
+                ran = True
         if ran:
-            # the backend may have moved keyframes (local BA): re-base the
-            # tracker's last-frame pose on its reference KF
+            if (self.loop_closing is not None
+                    and self.loop_closing.map is not self.map):
+                self._adopt_merged_map()
+            # the backend may have moved keyframes (local BA, loop
+            # correction, GBA): re-base the tracker's last-frame pose on
+            # its reference KF
             self.tracking.reanchor_last_frame()
+
+    def _adopt_merged_map(self):
+        """A map merge made another map the active one: point tracking and
+        local mapping at it, and re-resolve the tracker's reference (the
+        keyframe ids moved by the merge's offset)."""
+        self.map = self.loop_closing.map
+        self.tracking.map = self.map
+        if self.local_mapping is not None:
+            self.local_mapping.map = self.map
+            self.local_mapping.recent_points.clear()
+        self.tracking.ref_kf = max(self.map.keyframes)
+        self.tracking.last_kf_id = self.tracking.ref_kf
+        self.tracking.next_kf_id = max(self.map.keyframes) + 1
+        self.tracking._rel_pose = None
+        if self.tracking.last_frame is not None:
+            lf = self.tracking.last_frame
+            kf = self.map.keyframes[self.tracking.ref_kf]
+            # the moved keyframe was made from the current frame: adopt
+            # its welded pose
+            lf.R = kf.R.copy()
+            lf.t = kf.t.copy()
+            lf.mp_ids = kf.mp_ids.copy()
+            lf.inlier = lf.mp_ids >= 0
+        self.tracking.velocity = None
 
     def change_dataset(self):
         """System::ChangeDataset: between back-to-back sequences in one
@@ -245,17 +294,68 @@ class System:
             "the interactive map export waits for ROADMAP item 16")
 
     def save_atlas(self, path: str):
-        raise NotImplementedError(
-            "atlas files wait for ROADMAP item 11b (serialization)")
+        """Checkpoint the whole atlas (System::SaveAtlas), in the JAX
+        package's file format."""
+        from . import serialization
+
+        serialization.save_atlas(self.atlas, path)
 
     def load_atlas(self, path: str):
-        raise NotImplementedError(
-            "atlas files wait for ROADMAP item 11b (serialization)")
+        """Resume from a checkpoint (System::LoadAtlas). Tracking restarts
+        LOST and must relocalize into the loaded map."""
+        from . import serialization
+
+        self.atlas = serialization.load_atlas(path)
+        self.map = self.atlas.active
+        self.tracking.atlas = self.atlas
+        self.tracking.map = self.map
+        self.tracking.state = State.LOST
+        self.tracking.lost_since = 0.0
+        self.tracking.velocity = None
+        self.tracking.ref_kf = None
+        self._sync_active_map()
+        # one retrieval index over every loaded map, tagged by map id, so
+        # relocalization into stored maps and merges work after a resume
+        if self.loop_closing is not None:
+            self.loop_closing.map = self.map
+            self._reindex()
+            # KF-removal eviction into the fresh atlas and maps
+            self.atlas.kf_removed_hook = self.loop_closing._evict
+            for m in self.atlas.all_maps():
+                m.on_kf_removed = self.atlas._dispatch_kf_removed
+
+    def _reindex(self):
+        """A fresh retrieval index of every keyframe of the atlas, for loop
+        closing and relocalization."""
+        retr = Retrieval(dim=global_desc_dim(self.map.desc_dim))
+        for m in self.atlas.all_maps():
+            for kid in sorted(m.keyframes):
+                retr.add(kid, m.keyframes[kid].global_desc, map_id=m.map_id)
+        self.loop_closing.retrieval = retr
+        self.tracking.retrieval = retr
 
     def refit_retrieval_codebook(self, max_descs: int = 100000):
-        raise NotImplementedError(
-            "refitting the retrieval codebook waits for ROADMAP item 11b "
-            "(it re-indexes loop closing's keyframe database)")
+        """Fit a data-derived (spherical k-means) VLAD codebook on the
+        atlas's keyframe descriptors, re-aggregate every stored global
+        descriptor and rebuild the retrieval index (the trained-vocabulary
+        option)."""
+        descs = []
+        for m in self.atlas.all_maps():
+            for kf in m.keyframes.values():
+                descs.append(kf.desc[kf.valid])
+        if not descs:
+            return
+        d = np.concatenate(descs)
+        if len(d) > max_descs:
+            sel = np.random.default_rng(0).choice(len(d), max_descs,
+                                                  replace=False)
+            d = d[sel]
+        use_codebook(fit_codebook(d))
+        for m in self.atlas.all_maps():
+            for kf in m.keyframes.values():
+                kf.global_desc = aggregate_global_desc(kf.desc, kf.valid)
+        if self.loop_closing is not None:
+            self._reindex()
 
     # -- tracked-state getters (System.h) ----------------------------------
 
@@ -318,11 +418,14 @@ class System:
 
     def shutdown(self):
         self._is_shutdown = True
+        if self.loop_closing is not None:
+            self.loop_closing.flush()  # finish an in-flight budgeted GBA
         return {
             "keyframes": self.map.num_keyframes(),
             "map_points": self.map.num_points(),
             "maps": len(self.atlas.maps),
             "frames": len(self.tracking.trajectory),
-            "loops_closed": 0,
+            "loops_closed": (len(self.loop_closing.closed)
+                             if self.loop_closing is not None else 0),
             **self.tracking.stats,
         }

@@ -226,3 +226,124 @@ def make_sequence(n_frames: int = 60, hw=(480, 640), K=None, seed: int = 0,
         "poses": poses,
         "K": K,
     }
+
+
+def make_loop_map(rng, n_kf=14, n_pts=400, drift_per_kf=0.012,
+                  revisit_tail=2, period=None, drift_xi=None,
+                  desc_dim=64, bf=0.0,
+                  px_noise: float = 0.0, desc_noise: float = 0.0):
+    """A drifted loop-closure map (no detector in the loop), the port's copy
+    of ``xfeatslam_tpu.utils.synthetic.make_loop_map``: the camera walks a
+    circle of ``period`` keyframes and returns; odometry drift accumulates;
+    the last ``revisit_tail`` keyframes re-observe the first keyframes'
+    regions through fresh duplicate landmarks (the drifted revisit loop
+    closing exists for). The loop-closure workload of BASELINE config 5.
+
+    ``bf=0`` leaves every observation monocular; ``bf>0`` fills stereo
+    disparities ``ur = u - bf/z`` and per-slot depths from the true
+    geometry (the RGB-D case, closed with ``fix_scale=True``).
+
+    Returns (SlamMap, gt_poses, drifted_poses) with TUM1 intrinsics
+    (fx 517.3, fy 516.5, cx 318.6, cy 255.3)."""
+    import torch
+
+    from ..ops import lie
+    from ..slam.map import KeyFrame, SlamMap
+
+    period = period or n_kf
+    ang_pts = rng.uniform(0, 2 * np.pi, n_pts)
+    r_pts = rng.uniform(2.0, 3.5, n_pts)
+    X_gt = np.stack([
+        r_pts * np.sin(ang_pts), rng.uniform(-1.0, 1.0, n_pts),
+        r_pts * np.cos(ang_pts)
+    ], -1).astype(np.float32)
+    desc = rng.standard_normal((n_pts, desc_dim)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+
+    gt = []
+    for i in range(n_kf):
+        ang = 2 * np.pi * i / period
+        cy, sy = np.cos(ang), np.sin(ang)
+        R_wc = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+        C = 0.5 * np.array([np.sin(ang), 0.0, np.cos(ang) - 1.0], np.float32)
+        R_cw = R_wc.T
+        t_cw = -R_cw @ C
+        gt.append((R_cw, t_cw))
+
+    est = [gt[0]]
+    if drift_xi is None:
+        drift_xi = np.array([1.0, 0.3, -0.5, 0.15, 0.4, -0.2], np.float32)
+    for i in range(1, n_kf):
+        xi = drift_per_kf * np.asarray(drift_xi, np.float32)
+        dR, dt = (x.numpy() for x in lie.se3_exp(torch.from_numpy(
+            np.asarray(xi * i / n_kf, np.float32))))
+        R_d = dR @ gt[i][0]
+        t_d = dR @ gt[i][1] + dt * i
+        est.append((R_d.astype(np.float32), t_d.astype(np.float32)))
+
+    m = SlamMap(desc_dim=desc_dim)
+    K_slots = 300
+    mp_of_point = {}
+    for i, (R, t) in enumerate(est):
+        Xc_gt = X_gt @ gt[i][0].T + gt[i][1]
+        z = Xc_gt[:, 2]
+        u = 517.3 * Xc_gt[:, 0] / np.maximum(z, 1e-6) + 318.6
+        v = 516.5 * Xc_gt[:, 1] / np.maximum(z, 1e-6) + 255.3
+        if px_noise > 0:
+            # measurement noise on the detections; everything downstream
+            # (kpts, ur, the back-projected landmark) stays consistent
+            u = u + rng.normal(0, px_noise, u.shape)
+            v = v + rng.normal(0, px_noise, v.shape)
+        vis = (z > 0.5) & (u >= 10) & (u < 630) & (v >= 10) & (v < 470)
+        sel = np.nonzero(vis)[0][:K_slots]
+        kpts = np.zeros((K_slots, 2), np.float32)
+        dsc = np.zeros((K_slots, desc_dim), np.float32)
+        valid = np.zeros(K_slots, bool)
+        kpts[: len(sel)] = np.stack([u[sel], v[sel]], -1)
+        dsc[: len(sel)] = desc[sel]
+        if desc_noise > 0:
+            # per-observation descriptor noise: two views of one point no
+            # longer carry identical vectors
+            dsc[: len(sel)] += desc_noise * rng.standard_normal(
+                (len(sel), desc_dim)).astype(np.float32)
+            dsc[: len(sel)] /= np.linalg.norm(dsc[: len(sel)], axis=-1,
+                                              keepdims=True)
+        valid[: len(sel)] = True
+        ur_arr = np.full(K_slots, -1.0, np.float32)
+        depth_arr = np.zeros(K_slots, np.float32)
+        if bf > 0:
+            z_sel = Xc_gt[sel, 2]
+            ur_arr[: len(sel)] = u[sel] - bf / z_sel
+            depth_arr[: len(sel)] = z_sel
+        kf = KeyFrame(
+            kid=i, frame_id=i, timestamp=float(i),
+            kpts_un=kpts, desc=dsc, valid=valid,
+            ur=ur_arr,
+            depth=depth_arr,
+            R=R.copy(), t=t.copy(),
+        )
+        m.keyframes[i] = kf
+        m.covis.setdefault(i, {})
+        if m.kf_origin is None:
+            m.kf_origin = i
+        revisit = i >= n_kf - revisit_tail
+        for slot, p in enumerate(sel):
+            p = int(p)
+            ray = np.array([(kpts[slot, 0] - 318.6) / 517.3,
+                            (kpts[slot, 1] - 255.3) / 516.5, 1.0],
+                           np.float32)
+            z_gt = float(Xc_gt[p, 2])
+            Xw = (R.T @ (ray * z_gt - t)).astype(np.float32)
+            if revisit:
+                mp = m.create_point(Xw, dsc[slot], i)
+            elif p not in mp_of_point:
+                mp = m.create_point(Xw, dsc[slot], i)
+                mp_of_point[p] = mp
+            else:
+                mp = mp_of_point[p]
+            m.add_observation(mp, i, slot, update_links=False)
+        m.update_connections(i)
+        kf.parent = i - 1 if i > 0 else -1
+        if i > 0:
+            m.keyframes[i - 1].children.add(i)
+    return m, gt, est
