@@ -50,7 +50,8 @@ Phases, each fatal on failure:
      N=2048, the largest N it takes; one N more refused): R and t within
      1e-4, inlier flags equal on >= 0.99 of the valid slots, two calls bit
      for bit;
-  8. the RGB-D SLAM host, counted: ``System.track_rgbd`` (loop closing
+  8. the RGB-D SLAM host, counted (the frame step's kernels and
+     ``local_ba``, local mapping's rounds by replay): ``System.track_rgbd`` (loop closing
      on; no loop may close) on 40 rendered frames at 640x480, K=1000, the shipped weights, run
      three times in one process, each held to the JAX package's 40-frame
      bars (every frame OK, camera centre within 3 cm everywhere and 1 cm
@@ -73,16 +74,32 @@ Phases, each fatal on failure:
      at least one closure, the ATE RMSE after below the RMSE before and
      within 1.25x of the JAX package's CPU result on the same map; host ms
      per keyframe; the GBA's last problem eager and by replay, bit for
-     bit, timed, with its device events; the atlas through
+     bit, timed, with its device events, and the ``local_ba`` kernels
+     against their plain twin on it; the atlas through
      ``System.save_atlas`` and ``load_atlas``: keyframes, points, poses and
      the retrieval index equal;
- 11. local BA (``optim/local_ba``) at the bucket's shapes (32 cameras,
-     4096 points, 16384 observations) on the SLAM run's last first-stage
+ 10b. monocular SLAM, counted: ``System.track_monocular`` on 18 rendered
+     frames (640x480, K=1000, loop closing off): the initializer succeeds
+     with its global BA through the ``local_ba`` kernels (held to their
+     plain twin on the GBA's problem), the last frame
+     OK and at least 12 OK, at least 2 keyframes, at least 8 frames
+     through the captured step; per-frame states and wall, and the
+     keyframe trajectory's ATE after a similarity alignment;
+ 10c. the dataset readers: a TUM-layout sequence written here (PNGs by
+     ``write_png``, every scanline filter, two IDAT chunks; rgb.txt,
+     depth.txt, an association file, an OpenCV-YAML settings file), read
+     back equal, then ``examples/rgbd_tum`` in its dataset mode (every
+     pose written, within 1 cm of the truth) and the ``mono_tum`` twin (at
+     least 2 keyframes written);
+ 11. local BA (``optim/local_ba``, the ``local_ba`` kernels of
+     ``csrc/local_ba.cu``) at the bucket's shapes (32 cameras, 4096
+     points, 16384 observations) on the SLAM run's last first-stage
      problem and on a full bucket, for both schedules local mapping runs:
-     two eager solves bit-identical, the ``LocalBAGraph`` replay
-     bit-identical to the eager solve; eager, capture and replay ms and
-     the kernels per round (``torch.profiler``); the card's solve against
-     the CPU's solve of the same problem;
+     launches per solve from the wrapper's counter (at most 1,000 for a
+     (5, 0) round) and ``torch.profiler``; two eager solves bit-identical,
+     the ``LocalBAGraph`` replay bit-identical to the eager solve; eager,
+     capture and replay ms, the plain twin's ms; the kernels' solve
+     against the plain twin on the card and against the CPU's solve;
  12. CUDA-event timings of the forward, each kernel and its plain version
      (detect also at batch 1), the top-k, a PyTorch yardstick call where one
      computes the same function, the stages of one batch
@@ -137,7 +154,19 @@ KERNEL_SOURCES = {
                         "xfeatslam_tpu/ops/pallas_kernels.py:84"),
     "pose_lm": ("xfeatslam_tpu_torch/csrc/pose_lm.cu",
                 "xfeatslam_tpu/optim/pose_opt.py:82 (XLA, not Pallas)"),
+    "local_ba": ("xfeatslam_tpu_torch/csrc/local_ba.cu",
+                 "xfeatslam_tpu/optim/local_ba.py:102 (XLA, not Pallas)"),
 }
+# a (5, 0) local-BA round must stay under this many kernel launches (it
+# was ~16,429 as tensor ops; the kernels make it 431)
+LOCAL_BA_MAX_LAUNCHES = 1000
+# float ops per valid observation of the BA solver, counted from the
+# algorithm at its least: per CG step the residual's product J v once (27
+# MACs) and J^T of it on both sides (18 + 9 MACs), 108 in all; per LM
+# iteration the linearization (~150), the normal equations' sums (~220)
+# and one trial-cost pass (~40)
+LOCAL_BA_OPS_PER_OBS_CG_STEP = 108
+LOCAL_BA_OPS_PER_OBS_LM_ITER = 410
 # the kernels each path must launch
 BATCHED_KERNELS = {"detect_candidates": 1, "keypoint_desc": 1,
                    "mutual_nn_pairs": 1}
@@ -152,6 +181,9 @@ BF, DEPTH_EDGE_REL, INV_SIGMA2 = 40.0, 0.05, 1.0
 RADIUS_MOTION, RADIUS_LOCAL, TH_HIGH, RATIO = 15.0, 10.0, 1000.0, 0.9
 WIDEN_BELOW, SCALE_FACTOR = 20, 1.2
 N_FRAMES = 6
+# the SLAM host's kernels: the frame step's, and local BA's by replay
+SLAM_KERNELS = {**{name: None for name in FRAME_STEP_KERNELS},
+                "local_ba": None}
 # frames of the SLAM phase (the 40-frame bars of the JAX package's
 # test_slam_integration.py)
 SLAM_FRAMES, SLAM_MIN_CAPTURED = 40, 30
@@ -180,6 +212,11 @@ LOOP_RMSE_FACTOR = 1.25
 # and 34 relocalize (frame 1 at 4.06 mm), the others fail, as later frames
 # do on some seeds only in the JAX package
 RELOC_FRAME, RELOC_OTHER_FRAME = 0, 1
+# the monocular phase: JAX's test_xfeat_mono_tracks_single_dispatch at
+# 640x480, K=1000, and its bars
+MONO_FRAMES, MONO_MIN_OK, MONO_MIN_CAPTURED = 18, 12, 8
+# frames the readers phase writes as a TUM sequence
+READER_FRAMES = 12
 
 
 class SmokeFailure(Exception):
@@ -558,14 +595,17 @@ def extract_sync_check(ck, logits, heat, feats_flat, vals, aux):
           "set_sync_debug_mode('error'): no synchronizing call")
 
 
-def path_counts(ck, label, expect):
+def path_counts(ck, label, expect, allowed=()):
     """Read the launch counts of the path just driven and check that each
     kernel of ``expect`` launched (``expect`` maps a name to an exact count
-    or None for "at least once") and no other did."""
+    or None for "at least once") and no other did, but those ``allowed``
+    (any number of times)."""
     torch.cuda.synchronize()
     counts = ck.launch_counts()
     print(f"kernels [{label}]: " + json.dumps(counts))
     for name, n in counts.items():
+        if name in allowed:
+            continue
         if name not in expect:
             check(n == 0, f"{label}: kernel {name} launched off its path")
         elif expect[name] is None:
@@ -1143,7 +1183,7 @@ def slam_phase(ck, n_frames):
     ck.reset_launch_counts()
     run1 = _slam_run(n_frames, seq, settings, record_ba=True)
     counts = path_counts(ck, f"System.track_rgbd, {n_frames} frames",
-                         {name: None for name in FRAME_STEP_KERNELS})
+                         SLAM_KERNELS)
     graphs = run1["system"].local_mapping._ba_graph
     run2 = _slam_run(n_frames, seq, settings, ba_graph=graphs)
     run3 = _slam_run(n_frames, seq, settings, profile_from=2,
@@ -1296,8 +1336,10 @@ def relocalization_phase(ck, run, seq):
             check(tr.stats.get("reloc_ok", 0) == before + 1,
                   "the RECENTLY_LOST frame did not relocalize")
         t_next += 1.0 / 30
+    # a local-BA round may run after a relocalized frame
     path_counts(ck, "relocalization", {name: None
-                                       for name in FRAME_STEP_KERNELS})
+                                       for name in FRAME_STEP_KERNELS},
+                allowed=("local_ba",))
     # the pose LM kernel against its plain version on every call the
     # relocalizations made (the relocalization LM and the tracking after)
     check(lm_calls, "relocalization made no pose-LM call")
@@ -1324,7 +1366,8 @@ def localization_phase(ck, run, seq, t_next, last):
         Rg, tg = seq["poses"][i]
         errs.append(float(np.linalg.norm(-pose[0].T @ pose[1] + Rg.T @ tg)))
     path_counts(ck, "localization mode, 5 frames",
-                {name: None for name in FRAME_STEP_KERNELS})
+                {name: None for name in FRAME_STEP_KERNELS},
+                allowed=("local_ba",))
     print(f"localization mode: states {states}, camera centre error max "
           f"{max(errs) * 1e3:.3f} mm; keyframes {kfs} -> "
           f"{system.map.num_keyframes()}, map points {mps} -> "
@@ -1335,7 +1378,7 @@ def localization_phase(ck, run, seq, t_next, last):
     system.deactivate_localization_mode()
 
 
-def loop_phase(model_settings, dev):
+def loop_phase(ck, model_settings, dev):
     """Loop closing on ``bench.py --mode loop``'s workload at its full size:
     the 40-keyframe drifted RGB-D chain of ``utils/synthetic.make_loop_map``
     (period 36, the last 4 keyframes revisit the first, 1200 points,
@@ -1345,7 +1388,9 @@ def loop_phase(model_settings, dev):
     fall below the RMSE before. After LOOP_EXTRA_GBAS more inline GBAs of the
     final map it must stay within LOOP_RMSE_FACTOR of the JAX package's CPU
     figure after the same GBAs. The GBA's last problem is solved
-    again eagerly and by replay (bit-identical), and timed. Then the atlas
+    again eagerly and by replay (bit-identical), and timed, and the
+    kernels' solve is held to the plain twin's (``ba_against_plain``).
+    Then the atlas
     goes through ``System.save_atlas`` and a second System's
     ``load_atlas``: keyframes, points, poses and the retrieval index come
     back equal."""
@@ -1441,6 +1486,7 @@ def loop_phase(model_settings, dev):
           f"{kernels} device events per replay; "
           + json.dumps({k: round(v, 4) for k, v in times.items()}))
     check(same, "loop: the GBA replay differs from the eager solve")
+    ba_against_plain(ck, prob, cam, 40.0, (10, 10), "loop GBA")
 
     # the atlas through System.save_atlas / load_atlas
     settings = Settings(cam=cam, bf=40.0, depth_map_factor=1.0,
@@ -1534,6 +1580,9 @@ def ba_gap(a, b, prob):
     n_st = np.bincount(obs_pt[b["inlier"] & stereo], minlength=n_pts)
     c = (n_inl >= 2) & prob.p_valid.cpu().numpy()
     dX = np.linalg.norm(a["X"] - b["X"], axis=1)
+    # the gap over the point's distance from the world origin (the first
+    # camera's centre in a monocular initialization)
+    rel = dX / np.maximum(np.linalg.norm(b["X"], axis=1), 1e-12)
     both = a["inlier"] & b["inlier"]
     dchi = np.abs(a["chi2"] - b["chi2"])[both]
     worst = int(np.argmax(np.where(c, dX, -1)))
@@ -1545,6 +1594,7 @@ def ba_gap(a, b, prob):
         "constrained": int(c.sum()),
         "X_constrained_max": float(dX[c].max()) if c.any() else 0.0,
         "X_constrained_over_2e-3": int((dX[c] > 2e-3).sum()),
+        "X_constrained_rel_max": float(rel[c].max()) if c.any() else 0.0,
         "X_constrained_q99": float(np.quantile(dX[c], 0.99)) if c.any()
         else 0.0,
         # the constrained point that moved most: its inlier observations
@@ -1577,26 +1627,75 @@ def ba_on_cpu(ba, prob, cam, bf, si, planned: bool):
         ba._planned = saved
 
 
-def local_ba_phase(problems, settings, dev):
+def ba_against_plain(ck, prob, cam, bf, si, label, relative=False):
+    """The BA kernels (``ck.local_ba``) against their plain twin
+    (``ck.local_ba_plain``) on the card on one problem of a path, at the
+    local-BA phase's bars: R and t within 1e-4, the same inliers, the
+    points two or more inliers determine within 2e-3 m, or with
+    ``relative`` within 2e-3 of their distance from the first camera (a
+    monocular initialization fixes each depth by one short baseline, so a
+    depth's uncertainty grows with its square; see
+    tests/test_torch_slam_system.py::test_mono_initial_gba_matches_jax).
+    Returns the gap (``ba_gap``)."""
+    from xfeatslam_tpu_torch.optim import local_ba as ba
+
+    a = ba.BAResult(*ck.local_ba(prob, cam, bf, stage_iters=si))
+    b = ba.BAResult(*ck.local_ba_plain(prob, cam, bf, stage_iters=si))
+    gap = ba_gap(a, b, prob)
+    key = "X_constrained_rel_max" if relative else "X_constrained_max"
+    print(f"{label}: the BA kernels against the plain twin on the card "
+          f"({tuple(prob.R.shape)[0]} cameras, {prob.X.shape[0]} points, "
+          f"{prob.obs_cam.shape[0]} observations, stage_iters={si}): "
+          + json.dumps(gap))
+    check(gap["R"] <= 1e-4 and gap["t"] <= 1e-4,
+          f"{label}: BA poses differ from the plain twin's")
+    check(gap["inliers_differ"] == 0,
+          f"{label}: BA inliers differ from the plain twin's")
+    check(gap["constrained"] > 0, f"{label}: no constrained BA point")
+    check(gap[key] <= 2e-3,
+          f"{label}: BA points differ from the plain twin's ({key} "
+          f"{gap[key]})")
+    return gap
+
+
+def local_ba_bound(prob, stage_iters, cg_iters=40):
+    """(bound ms, by) of one solve of ``prob``: each input and output once
+    (the problem, its plan, the poses, points, inlier flags and chi2), and
+    LOCAL_BA_OPS_PER_OBS_* float ops per valid observation in every LM
+    iteration."""
+    nbytes = sum(x.numel() * x.element_size() for x in prob[:-1]) + sum(
+        x.numel() * x.element_size() for x in prob.plan)
+    C, P, O = prob.R.shape[0], prob.X.shape[0], prob.obs_cam.shape[0]
+    nbytes += (C * 12 + P * 3) * 4 + O * 5
+    n_obs = int(prob.valid.sum())
+    flops = n_obs * sum(stage_iters) * (
+        cg_iters * LOCAL_BA_OPS_PER_OBS_CG_STEP + LOCAL_BA_OPS_PER_OBS_LM_ITER)
+    return bound_ms(nbytes, flops)
+
+
+def local_ba_phase(ck, problems, settings, dev):
     """Local BA on the card at the bucket's shapes (32 cameras, 4096
     points, 16384 observations): the SLAM run's last first-stage problem
     and a full bucket. For each and for both of local mapping's schedules,
-    (5, 0) and (0, 5): two eager solves bit-identical, the graph replay
-    bit-identical to the eager solve; eager, capture and replay ms; the
-    kernels of one eager round from torch.profiler. Then the card's solve
-    against the CPU's solve of the same problem (``index_add_`` sums, the
-    JAX package's order; ``tests/test_torch_local_ba.py`` holds that path
-    and the card's order to the JAX package): on the SLAM problem at the
-    tests' bars (R and t within 1e-4, the same inliers, the constrained
-    points within 2e-3). The full bucket is held to the poses alone (and
-    at most one inlier in 10,000 flipped): its points are seen by 4 of 32
-    cameras on a short arc, and those left with two mono inliers have a
-    depth the problem does not fix. Five LM rounds of 40 CG steps leave
-    them where the rounding took them, up to 2 m apart (some run to ~800
-    m); the CPU moved from JAX's order to the card's, and the JAX package
-    against the port on the CPU in JAX's own order, show gaps of the same
-    size there. The gaps against the CPU in the card's order are printed
-    too."""
+    (5, 0) and (0, 5): the kernels' launches per solve from the wrapper's
+    counter (at most LOCAL_BA_MAX_LAUNCHES for (5, 0)) and from
+    torch.profiler; two eager solves bit-identical, the graph replay
+    bit-identical to the eager solve; eager, capture and replay ms, the
+    plain twin's ms (``cuda_kernels.local_ba_plain`` on the card). Then the
+    kernels' solve against the plain twin's and against the CPU's solve
+    of the same problem (``index_add_`` sums, the JAX package's order;
+    ``tests/test_torch_local_ba.py`` holds that path to the JAX package):
+    on the SLAM problem at the tests' bars (R and t within 1e-4, the same
+    inliers, the constrained points within 2e-3). The full bucket is held
+    to the poses and at most one inlier in 10,000 flipped: its points are
+    seen by 4 of 32 cameras on a short arc, and those left with two mono
+    inliers have a depth the problem does not fix. Five LM rounds of 40 CG
+    steps leave them where the rounding took them, up to metres apart; the
+    CPU moved from JAX's order to the plan's, and the JAX package against
+    the port on the CPU in JAX's own order, show gaps of the same size
+    there. The gaps against the CPU in the plan's order are printed too.
+    Returns the report and the kernels-row numbers (the SLAM problem at
+    (5, 0))."""
     from torch.profiler import ProfilerActivity, profile
 
     from xfeatslam_tpu_torch.optim import local_ba as ba
@@ -1606,7 +1705,7 @@ def local_ba_phase(problems, settings, dev):
     check(bool(firsts), "local BA: the SLAM run solved no first stage")
     cases = (("slam run's last", firsts[-1]),
              ("full bucket", full_ba_problem(cam, bf, dev)))
-    report = {}
+    report, row = {}, None
     for label, prob in cases:
         n_obs = int(prob.valid.sum())
         graph = ba.LocalBAGraph(dev)
@@ -1614,7 +1713,14 @@ def local_ba_phase(problems, settings, dev):
             def eager():
                 return ba.bundle_adjust(prob, cam, bf, stage_iters=si)
 
-            a, b = eager(), eager()
+            def plain():
+                return ba.BAResult(*ck.local_ba_plain(prob, cam, bf, si))
+
+            ck.reset_launch_counts()
+            a = eager()
+            torch.cuda.synchronize()
+            launches = ck.local_ba.launches
+            b = eager()
             same = all(torch.equal(x, y) for x, y in zip(a, b))
             rep = graph(prob, cam, bf, stage_iters=si)
             g_same = all(torch.equal(x, y) for x, y in zip(a, rep))
@@ -1628,7 +1734,8 @@ def local_ba_phase(problems, settings, dev):
             rep2 = graph(prob, cam, bf, stage_iters=si)
             g_same = g_same and all(torch.equal(x, y)
                                     for x, y in zip(a, rep2))
-            e_ms = cuda_ms(eager, iters=3, warmup=1)
+            e_ms = cuda_ms(eager, iters=5, warmup=1)
+            p_ms = cuda_ms(plain, iters=2, warmup=1)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 eager()
@@ -1636,40 +1743,314 @@ def local_ba_phase(problems, settings, dev):
             kernels = sum(1 for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA)
             key = f"{label}, stage_iters={si}"
+            b_ms, b_by = local_ba_bound(prob, si)
             report[key] = {
                 "valid_observations": n_obs,
+                "launches_per_solve": launches,
+                "expected_launches": ck.local_ba_launches(si, 40),
+                "device_events_per_solve": kernels,
                 "eager_ms": round(e_ms, 4),
                 "replay_ms": round(float(np.median(replays)) * 1e3, 4),
                 "capture_ms": round(graph.capture_seconds[-1] * 1e3, 4),
-                "kernels_per_round": kernels,
+                "plain_ms": round(p_ms, 4),
+                "bound_ms": b_ms, "bound_by": b_by,
                 "inliers": int(a.inlier.sum())}
             print(f"local BA [{key}]: {n_obs} valid observations; two eager "
                   f"solves bit-identical {same}; graph replay bit-identical "
                   f"to eager {g_same}; " + json.dumps(report[key]))
+            check(launches == ck.local_ba_launches(si, 40),
+                  f"local BA [{key}]: {launches} launches, expected "
+                  f"{ck.local_ba_launches(si, 40)}")
+            if si == (5, 0):
+                check(launches <= LOCAL_BA_MAX_LAUNCHES,
+                      f"local BA [{key}]: {launches} launches per round")
             check(same, f"local BA [{key}]: two eager solves differ")
             check(g_same, f"local BA [{key}]: the replay differs from the "
                   "eager solve")
             check(bool(torch.isfinite(a.X).all() & torch.isfinite(a.t).all()),
                   f"local BA [{key}]: non-finite result")
-            gap = ba_gap(a, ba_on_cpu(ba, prob, cam, bf, si, planned=False),
-                         prob)
+            gaps = {
+                "the plain twin on the card": ba_gap(a, plain(), prob),
+                "the CPU": ba_gap(a, ba_on_cpu(ba, prob, cam, bf, si,
+                                               planned=False), prob)}
             gap_order = ba_gap(a, ba_on_cpu(ba, prob, cam, bf, si,
                                             planned=True), prob)
-            report[key]["against_cpu"] = gap
-            print(f"local BA [{key}]: the card against the CPU: "
-                  + json.dumps(gap) + "; against the CPU in the card's "
-                  "order: " + json.dumps(gap_order))
-            check(gap["R"] <= 1e-4 and gap["t"] <= 1e-4,
-                  f"local BA [{key}]: poses differ from the CPU's")
-            if label == "full bucket":
-                check(gap["inliers_differ"] <= n_obs // 10000,
-                      f"local BA [{key}]: inliers differ from the CPU's")
-            else:
-                check(gap["inliers_differ"] == 0,
-                      f"local BA [{key}]: inliers differ from the CPU's")
-                check(gap["X_constrained_max"] <= 2e-3,
-                      f"local BA [{key}]: points differ from the CPU's")
-    return report
+            report[key]["against"] = gaps
+            print(f"local BA [{key}]: the kernels against "
+                  + "; against ".join(f"{k}: {json.dumps(g)}"
+                                      for k, g in gaps.items())
+                  + "; against the CPU in the plan's order: "
+                  + json.dumps(gap_order))
+            for ref, gap in gaps.items():
+                check(gap["R"] <= 1e-4 and gap["t"] <= 1e-4,
+                      f"local BA [{key}]: poses differ from {ref}'s")
+                if label == "full bucket":
+                    check(gap["inliers_differ"] <= n_obs // 10000,
+                          f"local BA [{key}]: inliers differ from {ref}'s")
+                else:
+                    check(gap["inliers_differ"] == 0,
+                          f"local BA [{key}]: inliers differ from {ref}'s")
+                    check(gap["X_constrained_max"] <= 2e-3,
+                          f"local BA [{key}]: points differ from {ref}'s")
+            if row is None:
+                row = {"max_abs_err": max(gaps["the plain twin on the card"][k]
+                                          for k in ("R", "t")),
+                       "ms": e_ms, "device_ms": report[key]["replay_ms"],
+                       "plain_ms": p_ms, "bound": (b_ms, b_by)}
+    return report, row
+
+
+def mono_phase(ck):
+    """``System.track_monocular`` (loop closing off) on MONO_FRAMES rendered
+    frames at 640x480, K=1000, the configuration of the JAX package's
+    test_xfeat_mono_tracks_single_dispatch, held to its bars: the
+    initializer succeeds, the last state OK and at least MONO_MIN_OK OK,
+    at least 2 keyframes, at least MONO_MIN_CAPTURED frames through the
+    captured step; counted, and the initial GBA (``_initial_gba``) must
+    have launched the BA kernels, whose solve of its problem is then held
+    to the plain twin's (``ba_against_plain``, relative bar). Prints each
+    frame's state and host wall,
+    the keyframes, and the keyframe trajectory's ATE against the rendered
+    truth after a similarity alignment."""
+    import tempfile
+
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.optim import local_ba
+    from xfeatslam_tpu_torch.slam.settings import Settings
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+    from xfeatslam_tpu_torch.utils import io as io_utils
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(n_frames=MONO_FRAMES)
+    Km = seq["K"]
+    settings = Settings(
+        cam=Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2]]),
+        fps=30.0, n_features=K)
+    system = System(settings, Sensor.MONOCULAR, enable_loop_closing=False)
+    tr = system.tracking
+    gbas, gba_problems = [], []
+    initial_gba, solve = tr._initial_gba, local_ba.bundle_adjust
+
+    def recording(kf1, kf2):
+        n0 = ck.local_ba.launches
+        tw = time.perf_counter()
+        initial_gba(kf1, kf2)
+        gbas.append((ck.local_ba.launches - n0, time.perf_counter() - tw))
+
+    def recording_solve(prob, cam, bf=0.0, stage_iters=(5, 10), **kw):
+        if tuple(stage_iters) == (10, 10):
+            gba_problems.append((prob, cam, bf))
+        return solve(prob, cam, bf, stage_iters=stage_iters, **kw)
+
+    tr._initial_gba = recording
+    local_ba.bundle_adjust = recording_solve
+    ck.reset_launch_counts()
+    states, walls = [], []
+    try:
+        for i in range(MONO_FRAMES):
+            tw = time.perf_counter()
+            state, _ = system.track_monocular(seq["images"][i],
+                                              seq["timestamps"][i])
+            walls.append(time.perf_counter() - tw)
+            states.append(state.name)
+    finally:
+        local_ba.bundle_adjust = solve
+    counts = path_counts(ck, f"System.track_monocular, {MONO_FRAMES} frames",
+                         SLAM_KERNELS)
+    stats = system.shutdown()
+    print(f"mono: states {states}; initial GBA (launches, host s) {gbas}")
+    check(bool(gbas), "mono: the initializer did not succeed")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "KeyFrameTrajectory.txt")
+        system.save_keyframe_trajectory_tum(path)
+        est_t, est = io_utils.load_trajectory_tum(path)
+    gt_xyz = np.stack([-R.T @ t for (R, t) in seq["poses"]])
+    ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz, est_t,
+                            est[:, :3], scale=True)
+    # the orbit's extent, for scale
+    extent = float(np.linalg.norm(gt_xyz - gt_xyz.mean(0), axis=1).max())
+    report = {
+        "states": states, "ok": states.count("OK"),
+        "keyframes": system.map.num_keyframes(),
+        "map_points": system.map.num_points(),
+        "fused_grab": stats.get("fused_grab", 0),
+        "initial_gba": [{"launches": n, "host_ms": round(t * 1e3, 4)}
+                        for n, t in gbas],
+        "wall_ms": [round(w * 1e3, 4) for w in walls],
+        "wall_ms_median_from_frame_3": round(
+            float(np.median(walls[3:])) * 1e3, 4),
+        "keyframe_ate_rmse_sim3_m": ate,
+        "keyframe_poses_aligned": len(est_t),
+        "truth_extent_m": extent,
+    }
+    print(f"mono ({MONO_FRAMES} frames at {W}x{H}, K={K}): "
+          + json.dumps(report))
+    check(all(n == ck.local_ba_launches((10, 10), 40) for n, _ in gbas),
+          "mono: the initial GBA did not run through the BA kernels")
+    check(len(gba_problems) == len(gbas),
+          "mono: the initial GBA's problem was not recorded")
+    for prob, cam, bf in gba_problems:
+        ba_against_plain(ck, prob, cam, bf, (10, 10), "mono initial GBA",
+                         relative=True)
+    check(states[-1] == "OK", f"mono: the last frame is {states[-1]}")
+    check(states.count("OK") >= MONO_MIN_OK,
+          f"mono: {states.count('OK')} frames OK")
+    check(system.map.num_keyframes() >= 2, "mono: fewer than 2 keyframes")
+    check(report["fused_grab"] >= MONO_MIN_CAPTURED,
+          "mono: too few frames through the captured step")
+    check(np.isfinite(ate), "mono: no keyframe trajectory to align")
+    return counts
+
+
+def _png_chunk(kind, body):
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def write_png(path, px):
+    """A minimal PNG writer: uint8 gray or RGB, or uint16 gray, row y
+    filtered with type y % 5 (None, Sub, Up, Average, Paeth), so that the
+    reader meets every filter."""
+    import struct
+    import zlib
+
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    ch = 1 if px.ndim == 2 else px.shape[2]
+    raw = (px.astype(">u2") if px.dtype == np.uint16 else px).reshape(h, -1)
+    raw = raw.view(np.uint8).astype(np.int32)
+    bpp = ch * px.dtype.itemsize
+    a = np.pad(raw, ((0, 0), (bpp, 0)))[:, :-bpp]   # left
+    b = np.pad(raw, ((1, 0), (0, 0)))[:-1]          # up
+    c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]     # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kind = (np.arange(h) % 5)[:, None]
+    pred = np.select([kind == 1, kind == 2, kind == 3, kind == 4],
+                     [a, b, (a + b) >> 1, paeth], 0)
+    rows = np.concatenate([kind, (raw - pred) & 0xFF], 1).astype(np.uint8)
+    color = {1: 0, 3: 2}[ch]
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * px.dtype.itemsize, color, 0, 0,
+                       0)
+    data = zlib.compress(rows.tobytes())
+    # the image data in two IDAT chunks
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+                + _png_chunk(b"IDAT", data[:len(data) // 2])
+                + _png_chunk(b"IDAT", data[len(data) // 2:])
+                + _png_chunk(b"IEND", b""))
+
+
+def readers_phase():
+    """The dataset readers on a TUM-layout sequence this phase writes
+    (READER_FRAMES rendered frames: rgb/*.png 8-bit RGB, depth/*.png
+    16-bit at 5000 per metre, rgb.txt, depth.txt, an association file and
+    an OpenCV-YAML settings file with the rendered camera), through the
+    port's examples as a user runs them: ``rgbd_tum`` in its dataset mode
+    (every frame's pose written, the camera trajectory within 1 cm of the
+    truth after a rigid alignment) and the ``mono_tum`` twin (at least two
+    keyframes written)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from xfeatslam_tpu_torch.examples import mono_tum, rgbd_tum
+    from xfeatslam_tpu_torch.utils import io as io_utils
+    from xfeatslam_tpu_torch.utils import png, synthetic
+
+    seq = synthetic.make_sequence(n_frames=READER_FRAMES)
+    Km = seq["K"]
+    bf, th_depth, factor = 40.0, 3.0, 5000.0
+    yaml = "\n".join([
+        "%YAML:1.0", "# the rendered room's camera", 'File.version: "1.0"',
+        'Camera.type: "PinHole"', f"Camera1.fx: {Km[0, 0]}",
+        f"Camera1.fy: {Km[1, 1]}", f"Camera1.cx: {Km[0, 2]}",
+        f"Camera1.cy: {Km[1, 2]}", f"Camera.width: {W}",
+        f"Camera.height: {H}", "Camera.fps: 30", "Camera.RGB: 1",
+        f"Stereo.ThDepth: {th_depth * Km[0, 0] / bf}",
+        f"Stereo.b: {bf / Km[0, 0]}", f"RGBD.DepthMapFactor: {factor}",
+        f"ORBextractor.nFeatures: {K}", "ORBextractor.scaleFactor: 1.2",
+        "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20",
+        "ORBextractor.minThFAST: 7", ""])
+    gt_xyz = np.stack([-R.T @ t for (R, t) in seq["poses"]])
+    with tempfile.TemporaryDirectory() as root:
+        for sub in ("rgb", "depth"):
+            os.makedirs(os.path.join(root, sub))
+        lines = {"rgb": [], "depth": [], "assoc": []}
+        t0 = time.perf_counter()
+        for i in range(READER_FRAMES):
+            t = f"{seq['timestamps'][i]:.6f}"
+            name = f"{i:06d}.png"
+            gray = seq["images"][i]
+            write_png(os.path.join(root, "rgb", name),
+                      np.repeat(gray[..., None], 3, -1))
+            depth = np.round(seq["depths"][i] * factor).astype(np.uint16)
+            write_png(os.path.join(root, "depth", name), depth)
+            check(np.array_equal(png.read_gray(os.path.join(
+                root, "rgb", name)), gray), "readers: a gray frame read back "
+                "differs")
+            check(np.array_equal(png.read(os.path.join(
+                root, "depth", name)), depth), "readers: a depth frame read "
+                "back differs")
+            lines["rgb"].append(f"{t} rgb/{name}")
+            lines["depth"].append(f"{t} depth/{name}")
+            lines["assoc"].append(f"{t} rgb/{name} {t} depth/{name}")
+        for key, fname in (("rgb", "rgb.txt"), ("depth", "depth.txt"),
+                           ("assoc", "associations.txt")):
+            with open(os.path.join(root, fname), "w") as f:
+                f.write("# written by chip_smoke.py\n"
+                        + "\n".join(lines[key]) + "\n")
+        cfg = os.path.join(root, "room.yaml")
+        with open(cfg, "w") as f:
+            f.write(yaml)
+        print(f"readers: {READER_FRAMES} frames written as PNG and read back "
+              f"equal in {time.perf_counter() - t0:.2f} s")
+        check(len(io_utils.associate_tum(root)) == READER_FRAMES,
+              "readers: rgb.txt and depth.txt did not associate")
+
+        def run_example(mod, args, out):
+            buf = io.StringIO()
+            tw = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(args + ["--out", out])
+            wall = time.perf_counter() - tw
+            tail = [ln for ln in buf.getvalue().splitlines()
+                    if "tracking time" in ln]
+            print(f"readers: {mod.__name__.rsplit('.', 1)[1]} exit {rc} in "
+                  f"{wall:.2f} s; " + "; ".join(tail))
+            check(rc == 0, f"readers: {mod.__name__} exited {rc}")
+
+        out = os.path.join(root, "out_rgbd")
+        run_example(rgbd_tum, [cfg, root,
+                               os.path.join(root, "associations.txt")], out)
+        est_t, est = io_utils.load_trajectory_tum(
+            os.path.join(out, "CameraTrajectory.txt"))
+        kf_t, _ = io_utils.load_trajectory_tum(
+            os.path.join(out, "KeyFrameTrajectory.txt"))
+        ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz,
+                                est_t, est[:, :3])
+        print(f"readers: rgbd_tum wrote {len(est_t)} camera poses and "
+              f"{len(kf_t)} keyframes; ATE RMSE {ate * 1e3:.4f} mm")
+        check(len(est_t) == READER_FRAMES and len(kf_t) >= 1,
+              "readers: rgbd_tum's trajectories are incomplete")
+        check(ate < 0.01, "readers: rgbd_tum's trajectory is off by >= 1 cm")
+
+        out = os.path.join(root, "out_mono")
+        run_example(mono_tum, [cfg, root], out)
+        kf_t, kf = io_utils.load_trajectory_tum(
+            os.path.join(out, "KeyFrameTrajectory.txt"))
+        check(len(kf_t) >= 2,
+              f"readers: mono_tum wrote {len(kf_t)} keyframes")
+        ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz,
+                                kf_t, kf[:, :3], scale=True)
+        print(f"readers: mono_tum wrote {len(kf_t)} keyframes; "
+              f"similarity-aligned ATE RMSE {ate * 1e3:.4f} mm")
+        check(np.isfinite(kf).all(),
+              "readers: mono_tum's keyframe trajectory is not finite")
 
 
 def run(batch: int):
@@ -1813,10 +2194,14 @@ def run(batch: int):
     localization_phase(ck, run, seq, t_next, last)
 
     # ---- loop closing on bench.py's loop workload; the atlas files ----
-    loop_phase(run["system"].settings, dev)
+    loop_phase(ck, run["system"].settings, dev)
+
+    # ---- monocular SLAM; the dataset readers through the examples ----
+    mono_phase(ck)
+    readers_phase()
 
     # ---- local BA on the card, eager and by graph replay ----
-    local_ba_phase(problems, run["system"].settings, dev)
+    _, ba_row = local_ba_phase(ck, problems, run["system"].settings, dev)
 
     # ---- timings ----
     P = batch - 1
@@ -1928,6 +2313,18 @@ def run(batch: int):
         "launches": slam_launches["pose_lm"],
         "max_abs_err": max(lm_report["max_abs_err"], reloc_lm_err),
         "ms": lm_report["ms"], "plain_ms": lm_report["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    # the BA solver: launches on the SLAM path (run 1, local mapping's
+    # rounds by replay); its numbers from the local-BA phase on the SLAM
+    # run's problem at (5, 0); no single PyTorch call computes it
+    src, rep = KERNEL_SOURCES["local_ba"]
+    b_ms, b_by = ba_row["bound"]
+    rows_out.append({
+        "name": "local_ba", "route": "cuda", "source": src, "replaces": rep,
+        "launches": slam_launches["local_ba"],
+        "max_abs_err": ba_row["max_abs_err"],
+        "ms": ba_row["ms"], "plain_ms": ba_row["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
     print(json.dumps({"kernels": rows_out}))

@@ -296,4 +296,5 @@ def test_cpu_calls_launch_no_kernel(rng):
                                   "keypoint_desc": 0,
                                   "mutual_nn_pairs": 0,
                                   "similarity_top2": 0,
-                                  "pose_lm": 0}
+                                  "pose_lm": 0,
+                                  "local_ba": 0}

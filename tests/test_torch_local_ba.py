@@ -9,6 +9,8 @@ observations, which fix the scale gauge that mono edges leave free. The
 card's summation order (the ``SegmentPlan``'s, run on CPU tensors) meets
 the same bars against the JAX solves, the points within 2e-3."""
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -296,3 +298,117 @@ def test_full_bucket_against_jax(stage_iters, monkeypatch):
 def test_local_ba_graph_needs_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         tba.LocalBAGraph("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrapper (ops/cuda_kernels.local_ba): CPU dispatch, input
+# checks and the arguments the library gets, driven here through its CUDA
+# branch with the library call recorded (the kernels run on the card only:
+# chip_smoke.py holds them to the plain twin there)
+
+from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+
+
+def _card_problem():
+    fields, _, _, _ = make_problem(2, outlier_frac=0.1)
+    prob = tba.BAProblem(**{k: torch.from_numpy(np.array(v))
+                            for k, v in fields.items()})
+    return prob._replace(plan=_plan_of(fields))
+
+
+def test_cpu_tensors_take_the_plain_twin():
+    """On CPU tensors ``bundle_adjust`` is the plain twin, bit for bit, and
+    launches nothing."""
+    prob = _card_problem()._replace(plan=None)
+    cam = tc.Pinhole.from_list(CAMP)
+    ck.reset_launch_counts()
+    a = tba.bundle_adjust(prob, cam, BF, stage_iters=(2, 1))
+    b = tba.bundle_adjust_plain(prob, cam, BF, stage_iters=(2, 1))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert ck.launch_counts()["local_ba"] == 0
+
+
+@pytest.fixture
+def as_if_on_cuda(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors: the library's calls are
+    recorded; the solve writes 431 launches to its count."""
+    calls = []
+
+    def launch(fn, dev, *a):
+        calls.append((fn, a))
+        ctypes.c_int.from_address(a[-1]).value = 431
+
+    monkeypatch.setattr(ck, "_on_cuda", lambda *ts: True)
+    monkeypatch.setattr(ck, "_launch", launch)
+    monkeypatch.setattr(ck, "_entry", lambda fn: {
+        "local_ba_scratch_floats": lambda *a: calls.append((fn, a)) or 1000
+    }[fn])
+    monkeypatch.setattr(torch.Tensor, "get_device", lambda self: 0)
+    return calls
+
+
+BAD_INPUTS = {
+    "obs_cam int64": (lambda p: p._replace(obs_cam=p.obs_cam.long()),
+                      TypeError, "obs_cam"),
+    "R (C,9)": (lambda p: p._replace(R=p.R.reshape(-1, 9)), ValueError,
+                "R: expected shape"),
+    "valid as uint8": (lambda p: p._replace(valid=p.valid.to(torch.uint8)),
+                       TypeError, "valid"),
+    "chunk width 64": (lambda p: p._replace(plan=p.plan._replace(
+        cam_rows=p.plan.cam_rows[:, :64].contiguous())), ValueError,
+        "cam_rows"),
+    "pt_rows int32": (lambda p: p._replace(plan=p.plan._replace(
+        pt_rows=p.plan.pt_rows.int())), TypeError, "pt_rows"),
+    "no plan": (lambda p: p._replace(plan=None), ValueError, "SegmentPlan"),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_INPUTS))
+def test_wrapper_checks_raise_before_the_library(as_if_on_cuda, case):
+    bad, err, match = BAD_INPUTS[case]
+    with pytest.raises(err, match=match):
+        ck.local_ba(bad(_card_problem()), tc.Pinhole.from_list(CAMP), BF)
+    assert as_if_on_cuda == []
+
+
+def test_wrapper_refuses_negative_iterations(as_if_on_cuda):
+    with pytest.raises(ValueError, match=">= 0"):
+        ck.local_ba(_card_problem(), tc.Pinhole.from_list(CAMP), BF,
+                    stage_iters=(5, -1))
+    assert as_if_on_cuda == []
+
+
+def test_wrapper_passes_the_kernels_their_arguments(as_if_on_cuda):
+    prob = _card_problem()
+    C, P, O = prob.R.shape[0], prob.X.shape[0], prob.obs_cam.shape[0]
+    NCH, NW = prob.plan.cam_rows.shape[0], prob.plan.cam_chunks.shape[1]
+    PW = prob.plan.pt_rows.shape[1]
+    before = ck.local_ba.launches
+    R, t, X, inlier, chi2 = ck.local_ba(prob, tc.Pinhole.from_list(CAMP),
+                                        BF, stage_iters=(5, 0), cg_iters=7,
+                                        huber=False)
+    assert ck.local_ba.launches == before + 431
+    (fn0, size_args), (fn, a) = as_if_on_cuda
+    assert fn0 == "local_ba_scratch_floats"
+    assert size_args == (C, P, O, NCH, PW, 5)
+    assert fn == "local_ba"
+    ptrs, ints, floats = a[:22], a[22:32], a[32:37]
+    assert ints == (C, P, O, NCH, NW, PW, 5, 0, 7, 0)
+    np.testing.assert_allclose(floats, CAMP + [BF])
+    # the inputs, then the outputs and scratch the wrapper allocated
+    assert ptrs[0] == prob.R.data_ptr() and ptrs[13] == \
+        prob.plan.cam_rows.data_ptr()
+    assert ptrs[16:21] == tuple(x.data_ptr()
+                                for x in (R, t, X, inlier, chi2))
+    assert (R.shape, t.shape, X.shape, inlier.dtype, chi2.shape) == (
+        (C, 3, 3), (C, 3), (P, 3), torch.bool, (O,))
+
+
+@pytest.mark.parametrize("stage_iters,cg,n", [
+    ((5, 0), 40, 431), ((0, 5), 40, 431), ((10, 10), 40, 1708),
+    ((0, 0), 40, 4), ((2, 3), 7, 4 + 2 * 2 + 5 * (5 + 14))])
+def test_launch_count_formula(stage_iters, cg, n):
+    """The kernels of one solve (csrc/local_ba.cu's sequence): 4, and per
+    stage with iterations 2 plus per LM iteration 5 and 2 per CG step."""
+    assert ck.local_ba_launches(stage_iters, cg) == n

@@ -122,12 +122,16 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch.ops import geometry\n"
         "from xfeatslam_tpu_torch.optim import pose_opt, track_step, local_ba\n"
         "from xfeatslam_tpu_torch.optim import pnp, pose_graph, sim3\n"
+        "from xfeatslam_tpu_torch.optim import two_view\n"
         "from xfeatslam_tpu_torch.parallel import batched\n"
         "from xfeatslam_tpu_torch.utils import synthetic, io, timing, verbose\n"
+        "from xfeatslam_tpu_torch.utils import opencv_yaml, png\n"
         "from xfeatslam_tpu_torch.slam import (atlas, frame, local_mapping,\n"
         "    loop_closing, map, retrieval, serialization, settings, system,\n"
         "    tracking)\n"
-        "from xfeatslam_tpu_torch.examples import rgbd_tum\n"
+        "from xfeatslam_tpu_torch.examples import rgbd_tum, mono\n"
+        "from xfeatslam_tpu_torch.examples import (mono_tum, mono_kitti,\n"
+        "    mono_euroc, mono_tum_vi)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'xfeatslam_tpu')]\n"

@@ -40,6 +40,7 @@ from xfeatslam_tpu_torch.slam import map as tmap  # noqa: E402
 from xfeatslam_tpu_torch.slam import serialization as tser  # noqa: E402
 from xfeatslam_tpu_torch.slam import settings as tset  # noqa: E402
 from xfeatslam_tpu_torch.slam import system as tsys  # noqa: E402
+from xfeatslam_tpu_torch.examples import mono_tum_vi  # noqa: E402
 from xfeatslam_tpu_torch.examples import rgbd_tum  # noqa: E402
 from xfeatslam_tpu_torch.utils import io as tio  # noqa: E402
 from xfeatslam_tpu_torch.utils import synthetic as tsyn  # noqa: E402
@@ -152,7 +153,8 @@ def _settings():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(sensor=tsys.Sensor.MONOCULAR), "12"),
+    # the monocular sensor is ported; its inertial samples are not
+    (dict(sensor=tsys.Sensor.MONOCULAR, imu_samples=True), "15"),
     (dict(sensor=tsys.Sensor.STEREO), "14"),
     (dict(sensor=tsys.Sensor.IMU_MONOCULAR), "15"),
     (dict(sensor=tsys.Sensor.IMU_STEREO), "15"),
@@ -168,8 +170,12 @@ def test_unported_configurations_raise(kwargs, item):
     kw.update(kwargs)
     sensor = kw.pop("sensor", tsys.Sensor.RGBD)
     inertial = kw.pop("imu_initialized", False)
+    imu_samples = kw.pop("imu_samples", False)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         system = tsys.System(_settings(), sensor, **kw)
+        if imu_samples:
+            system.track_monocular(np.zeros(HW, np.uint8), 0.0,
+                                   imu=[(np.zeros(3), np.zeros(3), 0.0)])
         if inertial:
             system.map.imu_initialized = True
             system.loop_closing._optimize_essential_graph(
@@ -193,8 +199,9 @@ def test_unported_paths_raise(runs, tmp_path):
         tser.save_map(m, str(tmp_path / "m.npz"))
     with pytest.raises(NotImplementedError, match="item 16"):
         ts.export_map_html(str(tmp_path / "map.html"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tset.Settings.from_yaml("examples/configs/tum1_rgbd.yaml")
+    # the readers are ported; a fisheye config is not
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tset.Settings.from_yaml("examples/configs/tum_vi_mono.yaml")
     with pytest.raises(NotImplementedError, match="item 14"):
         tset.Settings(camera_type="KannalaBrandt8")
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -203,8 +210,8 @@ def test_unported_paths_raise(runs, tmp_path):
         runs["port_sys"].tracking.grab_rgbd(
             np.zeros(HW, np.uint8), np.zeros(HW, np.float32), 99.0,
             imu=[(np.zeros(3), np.zeros(3), 98.9)])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        rgbd_tum.main(["settings.yaml", "seq", "assoc.txt"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        mono_tum_vi.main(["examples/configs/tum_vi_mono.yaml", "seq"])
 
 
 def test_frame_step_graph_needs_cuda():

@@ -20,7 +20,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-KERNELS = ("detect_candidates", "desc_sample", "mnn_pairs", "pose_lm")
+KERNELS = ("detect_candidates", "desc_sample", "mnn_pairs", "pose_lm",
+           "local_ba")
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]

@@ -19,6 +19,10 @@ Kernels:
   pose_lm               csrc/pose_lm.cu            (optim/pose_opt.py:82, XLA
                         code in the JAX package, not Pallas: the pose LM
                         in one launch in place of ~20,000 small kernels)
+  local_ba              csrc/local_ba.cu           (optim/local_ba.py:102, XLA
+                        code in the JAX package, not Pallas: a BA solve
+                        in ~85 launches per LM iteration in place of
+                        ~3,300)
 """
 
 from __future__ import annotations
@@ -59,6 +63,9 @@ _ENTRY_POINTS = {
     "similarity_top2": ("mnn_pairs", [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
     "mnn_row_tile": ("mnn_pairs", [_I, _I]),  # host only, no stream
     "pose_lm": ("pose_lm", [_P] * 13 + [_I, _I, _I, _F, _F, _F, _F, _F, _P]),
+    "local_ba": ("local_ba", [_P] * 22 + [_I] * 10 + [_F] * 5 + [_P, _P]),
+    # host only; returns a count, not an error code
+    "local_ba_scratch_floats": ("local_ba", [_I] * 6, ctypes.c_longlong),
 }
 _entries: dict = {}
 
@@ -67,10 +74,10 @@ def _entry(fn: str):
     """The C entry point ``fn`` with its argument types declared."""
     f = _entries.get(fn)
     if f is None:
-        library, argtypes = _ENTRY_POINTS[fn]
+        library, argtypes, *restype = _ENTRY_POINTS[fn]
         f = getattr(_build.load(library), fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype[0] if restype else ctypes.c_int
         _entries[fn] = f
     return f
 
@@ -649,8 +656,103 @@ def pose_lm(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid,
 pose_lm.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# 6. local_ba: the BA solver (robust LM + PCG over cameras and points)
+
+def local_ba_plain(prob, cam: Pinhole, bf: float = 0.0,
+                   stage_iters=(5, 10), cg_iters: int = 40,
+                   huber: bool = True):
+    """Plain version: ``optim/local_ba.bundle_adjust_plain``, ~80 tensor
+    ops per CG step (segment sums in the plan's order on the card,
+    ``index_add_`` on the CPU). Returns (R, t, X, inlier, chi2)."""
+    from ..optim import local_ba  # local_ba imports this module
+
+    return tuple(local_ba.bundle_adjust_plain(prob, cam, bf, stage_iters,
+                                              cg_iters, huber))
+
+
+def local_ba_launches(stage_iters, cg_iters: int) -> int:
+    """Kernel launches of one solve: 4, plus per stage with iterations 2
+    and per LM iteration 5 + 2 per CG step."""
+    return 4 + sum(2 + n * (5 + 2 * cg_iters) for n in stage_iters if n > 0)
+
+
+def local_ba(prob, cam: Pinhole, bf: float = 0.0, stage_iters=(5, 10),
+             cg_iters: int = 40, huber: bool = True):
+    """The two-stage robust LM of ``optim/local_ba.bundle_adjust`` as the
+    kernel sequence of ``csrc/local_ba.cu`` (``local_ba_launches`` of
+    them).
+
+    Args:
+      prob: an ``optim/local_ba.BAProblem`` (C cameras, P points, O
+        observations) with its ``SegmentPlan`` (required on the card).
+      cam: a Pinhole (its distortion is not used); bf, a number.
+    Returns (R (C,3,3), t (C,3), X (P,3), inlier (O,) bool, chi2 (O,)).
+    Deterministic: fixed summation orders, no atomics. The observations'
+    camera and point indices are trusted (no host read to check them)."""
+    fields = (prob.R, prob.t, prob.fixed, prob.cam_valid, prob.X,
+              prob.p_valid, prob.obs_cam, prob.obs_pt, prob.uv, prob.ur,
+              prob.stereo, prob.valid, prob.inv_sigma2)
+    if not _on_cuda(*fields):
+        return local_ba_plain(prob, cam, bf, stage_iters, cg_iters, huber)
+    if prob.plan is None:
+        raise ValueError("local_ba on the card needs the problem's "
+                         "SegmentPlan (optim/local_ba.segment_plan)")
+    # the plan's chunk width is kChunk in csrc/local_ba.cu
+    from ..optim.local_ba import SEGMENT_CHUNK  # local_ba imports this module
+
+    _on_cuda(*fields, *prob.plan)  # the plan on the same card, or raise
+    (R, t, fixed, cam_valid, X, p_valid, obs_cam, obs_pt, uv, ur, stereo,
+     valid, isig) = (x.contiguous() for x in fields)
+    cam_rows, cam_chunks, pt_rows = (x.contiguous() for x in prob.plan)
+    C, P, O = R.shape[0], X.shape[0], obs_cam.shape[0]
+    NCH, NW, PW = cam_rows.shape[0], cam_chunks.shape[1], pt_rows.shape[1]
+    f32, b8, i32, i64 = torch.float32, torch.bool, torch.int32, torch.int64
+    for x, name, dtype, shape in (
+            (R, "R", f32, (C, 3, 3)), (t, "t", f32, (C, 3)),
+            (fixed, "fixed", b8, (C,)), (cam_valid, "cam_valid", b8, (C,)),
+            (X, "X", f32, (P, 3)), (p_valid, "p_valid", b8, (P,)),
+            (obs_cam, "obs_cam", i32, (O,)), (obs_pt, "obs_pt", i32, (O,)),
+            (uv, "uv", f32, (O, 2)), (ur, "ur", f32, (O,)),
+            (stereo, "stereo", b8, (O,)), (valid, "valid", b8, (O,)),
+            (isig, "inv_sigma2", f32, (O,)),
+            (cam_rows, "plan.cam_rows", i64, (NCH, SEGMENT_CHUNK)),
+            (cam_chunks, "plan.cam_chunks", i64, (C, NW)),
+            (pt_rows, "plan.pt_rows", i64, (P, PW))):
+        _check(x, name, dtype, shape)
+    if min(C, P, O, NCH, NW, PW) < 1:
+        raise ValueError("local_ba: empty problem")
+    iters1, iters2 = (int(n) for n in stage_iters)
+    if min(iters1, iters2, int(cg_iters)) < 0:
+        raise ValueError("local_ba: stage_iters and cg_iters must be >= 0")
+    dev = X.device
+    n_scratch = _entry("local_ba_scratch_floats")(C, P, O, NCH, PW,
+                                                   max(iters1, iters2))
+    R_out = torch.empty((C, 3, 3), dtype=f32, device=dev)
+    t_out = torch.empty((C, 3), dtype=f32, device=dev)
+    X_out = torch.empty((P, 3), dtype=f32, device=dev)
+    inlier = torch.empty(O, dtype=b8, device=dev)
+    chi2 = torch.empty(O, dtype=f32, device=dev)
+    scratch = torch.empty(n_scratch, dtype=f32, device=dev)
+    n = ctypes.c_int(0)
+    try:
+        _launch("local_ba", X.get_device(), *(_ptr(x) for x in (
+            R, t, fixed, cam_valid, X, p_valid, obs_cam, obs_pt, uv, ur,
+            stereo, valid, isig, cam_rows, cam_chunks, pt_rows, R_out, t_out,
+            X_out, inlier, chi2, scratch)),
+            C, P, O, NCH, NW, PW, iters1, iters2, int(cg_iters), int(huber),
+            float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy),
+            float(bf), ctypes.addressof(n))
+    finally:
+        local_ba.launches += n.value
+    return R_out, t_out, X_out, inlier, chi2
+
+
+local_ba.launches = 0
+
+
 _WRAPPERS = (detect_candidates, bilinear_desc_sample, keypoint_desc,
-             mutual_nn_pairs, similarity_top2, pose_lm)
+             mutual_nn_pairs, similarity_top2, pose_lm, local_ba)
 
 
 def launch_counts() -> dict:

@@ -8,19 +8,23 @@ two-stage schedule (5 iterations, prune chi2 outliers, 10 iterations).
 Matrix-free: the damped normal equations (H + lam D) dx = -g are solved by
 block-Jacobi preconditioned conjugate gradients, with H-vector products as
 per-observation products and segment sums. Every shape is static (padded
-and masked). The two ``fori_loop``s of the JAX version become Python loops
-that never read a device value on the host: accept or reject, the damping
-and the CG step sizes are ``torch.where`` selections and 0-dim tensors. The
-small products are broadcast multiply-and-sum (``lie.mat_mul`` /
-``mat_vec``), never ``@``.
+and masked).
 
-On the card the segment sums add each camera's and each point's
-observations in one fixed order (``SegmentPlan``, built once per problem
-on the host), where a scatter-add adds in the order its atomics land; a
-solve then gives the same bits on every run, and with no host sync it can
-be captured as one CUDA graph (``LocalBAGraph``; the batched
-``torch.linalg.inv_ex`` captures). On the CPU the sums are ``index_add_``,
-in the JAX package's order (``_planned``).
+``bundle_adjust`` dispatches on the device, as ``pose_opt`` does: CUDA
+tensors go to the hand-written kernels of ``csrc/local_ba.cu``
+(``ops/cuda_kernels.local_ba``: ~85 launches per LM iteration, summing
+each camera's and each point's observations in the fixed order of a
+``SegmentPlan``, built once per problem on the host), CPU tensors to
+``bundle_adjust_plain``. That plain twin is the JAX code written out in
+tensor ops: the two ``fori_loop``s become Python loops that never read a
+device value on the host (accept or reject, the damping and the CG step
+sizes are ``torch.where`` selections and 0-dim tensors), the small
+products are broadcast multiply-and-sum (``lie.mat_mul`` / ``mat_vec``),
+never ``@``. Its segment sums are ``index_add_`` on the CPU, in the JAX
+package's order, and follow the plan on CUDA tensors (``_planned``), where
+it runs only as the kernels' reference. Either way a solve gives the same
+bits on every run and, with no host sync, is captured as one CUDA graph
+(``LocalBAGraph``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import cuda_kernels as ck
 from ..ops import lie
 from ..ops.camera import Pinhole, pinhole_project_jac
 from ..ops.lie import mat_mul, mat_vec
@@ -40,7 +45,8 @@ CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
 
 
-# observation rows per chunk of a camera's segment sum
+# observation rows per chunk of a camera's segment sum (the BA kernels are
+# built for it: kChunk in csrc/local_ba.cu)
 SEGMENT_CHUNK = 128
 
 
@@ -191,11 +197,23 @@ def _depth(prob: BAProblem, R, t, X):
 def bundle_adjust(prob: BAProblem, cam: Pinhole, bf: float = 0.0,
                   stage_iters: Tuple[int, int] = (5, 10), cg_iters: int = 40,
                   huber: bool = True) -> BAResult:
-    """Run the two-stage robust LM schedule of LocalBundleAdjustment.
+    """Run the two-stage robust LM schedule of LocalBundleAdjustment: the
+    kernels of ``csrc/local_ba.cu`` on CUDA tensors (``prob.plan``
+    required), ``bundle_adjust_plain`` on CPU tensors.
 
     Returns BAResult with the updated poses and points and the final
     observation inlier classification (chi2 <= 5.991 / 7.815 and positive
     depth, the reference's prune rule)."""
+    return BAResult(*ck.local_ba(prob, cam, bf, stage_iters, cg_iters,
+                                 huber))
+
+
+@torch.no_grad()
+def bundle_adjust_plain(prob: BAProblem, cam: Pinhole, bf: float = 0.0,
+                        stage_iters: Tuple[int, int] = (5, 10),
+                        cg_iters: int = 40, huber: bool = True) -> BAResult:
+    """``bundle_adjust`` in tensor ops: the kernels' plain twin
+    (``ops/cuda_kernels.local_ba_plain``), and the solve on the CPU."""
     n_cams, n_pts = prob.R.shape[0], prob.X.shape[0]
     plan = prob.plan
     if plan is None and _planned(prob.R):
@@ -338,8 +356,9 @@ class LocalBAGraph(CapturedCalls):
     """``bundle_adjust`` captured and replayed (``track_step.CapturedCalls``):
     the counterpart of the JAX package's one jitted solve.
 
-    A round of five LM iterations launches thousands of small kernels,
-    which eager calls pay for on the host. The graph's key holds, besides
+    A round of five LM iterations launches 431 kernels
+    (``cuda_kernels.local_ba_launches``), which eager calls pay for on the
+    host. The graph's key holds, besides
     each tensor's shape and dtype (the plan's too, which is an input, so
     one graph serves every problem of a bucket), the camera, bf,
     ``stage_iters``, ``cg_iters`` and ``huber``. The segment sums add in a

@@ -106,6 +106,24 @@ class FramePipeline:
             kpts=kpts, kpts_un=kpts_un, desc=out["desc"][0],
             scores=out["scores"][0], valid=valid, depth=d, ur=ur)), timestamp)
 
+    @torch.no_grad()
+    def build_mono(self, gray: np.ndarray, timestamp: float) -> Frame:
+        """Extract and undistort on the extractor's device; every keypoint
+        a monocular observation (no depth, no right coordinate)."""
+        ex = self.extractor
+        out = extract_fn(ex.model, image_ops.to_float_image(gray, ex.device),
+                         ex.nfeatures, ex.compute_dtype)
+        kpts = out["kpts"][0]
+        K = kpts.shape[0]
+        return self.assemble_rgbd(track_step.fetch(dict(
+            kpts=kpts,
+            kpts_un=camera_ops.undistort_points(self.cam, out["kpts"])[0],
+            desc=out["desc"][0], scores=out["scores"][0],
+            valid=out["valid"][0],
+            depth=torch.zeros(K, dtype=torch.float32, device=ex.device),
+            ur=torch.full((K,), -1.0, dtype=torch.float32,
+                          device=ex.device))), timestamp)
+
     def assemble_rgbd(self, out: dict, timestamp: float) -> Frame:
         """A Frame from per-keypoint numpy arrays computed elsewhere (the
         whole-frame step runs extraction, undistortion and the depth lookup

@@ -1,4 +1,4 @@
-"""System: the public session facade, RGB-D.
+"""System: the public session facade, monocular and RGB-D.
 
 Counterpart of ``xfeatslam_tpu/slam/system.py`` (the role of ORB-SLAM3's
 System.cc): build the pipeline (extractor, atlas, tracking, local
@@ -11,9 +11,9 @@ frame.
 The device work runs on ``device``: CUDA unless the caller asks for the
 CPU, and without a GPU the default raises. Localization mode, the
 trajectory savers and the tracked-state getters are here. Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: the monocular,
-stereo and inertial sensors (items 12, 14, 15), the ORB backend (item 13)
-and the viewer and map export (item 16).
+each raising ``NotImplementedError`` with its ROADMAP item: the stereo and
+inertial sensors (items 14, 15), the ORB backend (item 13) and the viewer
+and map export (item 16).
 """
 
 from __future__ import annotations
@@ -50,7 +50,6 @@ class Sensor(enum.Enum):
 
 
 _UNPORTED_SENSORS = {
-    Sensor.MONOCULAR: "monocular initialization waits for ROADMAP item 12",
     Sensor.STEREO: "stereo waits for ROADMAP item 14",
     Sensor.IMU_MONOCULAR: "the inertial modes wait for ROADMAP item 15",
     Sensor.IMU_STEREO: "the inertial modes wait for ROADMAP item 15",
@@ -100,9 +99,10 @@ class System:
                             th_far_points=settings.th_far_points)
         self.loop_closing = None
         if enable_loop_closing and enable_mapping:
-            # RGB-D: the scale is observable
+            # the scale is observable with depth, not from one camera
             self.loop_closing = LoopClosing(
-                self.map, settings.cam, bf=settings.bf, fix_scale=True,
+                self.map, settings.cam, bf=settings.bf,
+                fix_scale=sensor != Sensor.MONOCULAR,
                 atlas=self.atlas, device=self.device)
             # the post-loop GBA runs budgeted: the robust stage at the loop
             # frame, the remaining rounds one per frame through tick()
@@ -113,7 +113,8 @@ class System:
             self.pipeline, self.map, settings.cam, cfg, atlas=self.atlas,
             timer=self.timer,
             retrieval=(self.loop_closing.retrieval
-                       if self.loop_closing is not None else None))
+                       if self.loop_closing is not None else None),
+            sensor="mono" if sensor == Sensor.MONOCULAR else "rgbd")
         self.local_mapping = None
         if enable_mapping:
             self.local_mapping = LocalMapping(self.map, settings.cam,
@@ -132,8 +133,13 @@ class System:
     def track_stereo(self, gray_l, gray_r, timestamp, imu=None):
         raise NotImplementedError(_UNPORTED_SENSORS[Sensor.STEREO])
 
-    def track_monocular(self, gray, timestamp, imu=None):
-        raise NotImplementedError(_UNPORTED_SENSORS[Sensor.MONOCULAR])
+    def track_monocular(self, gray: np.ndarray, timestamp: float, imu=None):
+        """Returns (state, (R,t) world->camera or None)."""
+        with self.timer.span("track"):
+            state, pose = self.tracking.grab_mono(gray, timestamp, imu=imu)
+        with self.timer.span("backend"):
+            self._run_backend()
+        return state, pose
 
     def _sync_active_map(self):
         """Tracking may have switched to a new map (Atlas): re-point the

@@ -1,4 +1,4 @@
-"""Tracking: the per-frame state machine, RGB-D and non-inertial.
+"""Tracking: the per-frame state machine, monocular and RGB-D, non-inertial.
 
 Counterpart of ``xfeatslam_tpu/slam/tracking.py`` (the role of ORB-SLAM3's
 Tracking.cc): the states NOT_INITIALIZED / OK / RECENTLY_LOST / LOST,
@@ -9,7 +9,14 @@ control flow and map bookkeeping in numpy.
 Every steady-state frame runs extraction and both tracking stages as one
 device call: on the card the frame step's CUDA graph
 (``track_step.RgbdFrameStepGraph``), on the CPU the eager
-``xfeat_rgbd_frame_step``. Its outputs come back in one transfer.
+``xfeat_rgbd_frame_step``; a monocular frame takes the same step without
+depth. Its outputs come back in one transfer.
+
+A monocular map starts from two frames (``_initialize_mono``): windowed
+matches, the two-view H/F reconstruction (``optim/two_view``, its RANSAC
+sets drawn from a generator seeded by the frame id), the median-depth
+normalization, two keyframes with their points, and a global BA of the
+pair through ``optim/local_ba`` (the BA kernels on the card).
 
 A lost frame relocalizes (retrieval candidates, descriptor matching, PnP
 RANSAC, the pose LM and the guided widening ladder); localization mode
@@ -18,8 +25,7 @@ visual odometry on the last frame's depth points off the map
 (``vo_mode``).
 
 Not ported yet, each raising ``NotImplementedError`` where it would run:
-monocular initialization (ROADMAP item 12), stereo frames (item 14) and
-the inertial modes (item 15).
+stereo frames (ROADMAP item 14) and the inertial modes (item 15).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from ..ops import camera as camera_ops
 from ..ops import lie
 from ..ops import image as image_ops
 from ..ops import matching
-from ..optim import pnp, pose_opt, track_step
+from ..optim import local_ba, pnp, pose_opt, track_step, two_view
 from ..optim.track_step import fetch
 from .frame import DEPTH_EDGE_REL, Frame, FramePipeline
 from .map import KeyFrame, SlamMap
@@ -126,13 +132,17 @@ class TrackerConfig:
 class Tracking:
     def __init__(self, pipeline: FramePipeline, slam_map: SlamMap,
                  cam: camera_ops.Pinhole, config: TrackerConfig, atlas,
-                 timer=None, retrieval=None):
-        """timer: an optional ``utils.timing.StageTimer`` that receives the
+                 timer=None, retrieval=None, sensor: str = "rgbd"):
+        """sensor: "rgbd" or "mono". timer: an optional ``utils.timing.StageTimer`` that receives the
         spans ``track.snapshot`` (the host's inputs of the frame step) and
         ``track.frame_step`` (the step and its one host read). retrieval:
         the keyframe database that relocalization queries (loop closing's;
         None without it, and candidates come from a brute-force cosine over
         the keyframes' global descriptors)."""
+        if sensor not in ("rgbd", "mono"):
+            raise NotImplementedError(
+                f"sensor {sensor!r}: stereo waits for ROADMAP item 14")
+        self.sensor = sensor
         self.pipeline = pipeline
         self.map = slam_map
         self.timer = timer
@@ -173,6 +183,8 @@ class Tracking:
         self._rel_pose = None
         self._last_local_ids = None
         self._last_n_matched = 0
+        # monocular initialization's held reference frame
+        self._mono_init_frame: Optional[Frame] = None
 
     def _t(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -186,6 +198,17 @@ class Tracking:
         frame = self._grab_rgbd_fused(gray, depth_raw, timestamp)
         if frame is None:
             frame = self.pipeline.build_rgbd(gray, depth_raw, timestamp)
+        return self._track(frame)
+
+    def grab_mono(self, gray, timestamp, imu=None):
+        """A monocular frame: the frame step without depth first, as
+        grab_rgbd."""
+        if imu:
+            raise NotImplementedError(
+                "IMU samples: the inertial modes wait for ROADMAP item 15")
+        frame = self._grab_rgbd_fused(gray, None, timestamp)
+        if frame is None:
+            frame = self.pipeline.build_mono(gray, timestamp)
         return self._track(frame)
 
     def _fused_grab_setup(self, timestamp):
@@ -223,7 +246,8 @@ class Tracking:
         CUDA graph on the card, the eager step on the CPU) and one host
         transfer. Returns a Frame with the two-stage result stashed for
         _track_frame_fused, or None when the preconditions do not hold
-        (then the frame is built and tracked the split way)."""
+        (then the frame is built and tracked the split way). Without
+        ``depth_raw`` the step runs its monocular configuration."""
         with self._span("track.snapshot"):
             setup = self._fused_grab_setup(timestamp)
             if setup is None:
@@ -237,7 +261,7 @@ class Tracking:
                    cfg.min_inliers_motion, cfg.scale_factor,
                    2.0 * float(self.cam.cx), 2.0 * float(self.cam.cy))
         kw = dict(num_keypoints=self.pipeline.extractor.nfeatures,
-                  n_levels=cfg.n_levels, has_depth=True)
+                  n_levels=cfg.n_levels, has_depth=depth_raw is not None)
         with self._span("track.frame_step"):
             if self._graph is not None:
                 res = self._graph(*tensors, *scalars, **kw)
@@ -260,9 +284,12 @@ class Tracking:
         (R0, t0, ids, ids1, safe1, valid1, pos, desc, valid2, padded_ids,
          safe2) = setup
         pts = self.map.points
+        # the monocular step ignores its depth input
+        depth_m = (np.zeros((1, 1), np.float32) if depth_raw is None
+                   else self.pipeline.depth_meters(depth_raw))
         tensors = [
             image_ops.to_float_image(gray, self.device),
-            self._t(self.pipeline.depth_meters(depth_raw)),
+            self._t(depth_m),
             self._t(R0), self._t(t0),
             self._t(pts.pos[safe1]), self._t(pts.desc[safe1]),
             self._t(valid1), self._t(pts.angle[safe1]),
@@ -283,7 +310,9 @@ class Tracking:
             return self.state, None
         if self.state in (State.NO_IMAGES, State.NOT_INITIALIZED):
             self.state = State.NOT_INITIALIZED
-            if self._initialize_rgbd(frame):
+            init = (self._initialize_rgbd(frame) if self.sensor == "rgbd"
+                    else self._initialize_mono(frame))
+            if init:
                 self.state = State.OK
         elif self.state == State.LOST:
             if self._relocalization(frame):
@@ -544,6 +573,138 @@ class Tracking:
         self.ref_kf = kf.kid
         self.last_kf_frame_id = frame.fid
         return True
+
+    # -- monocular initialization ---------------------------------------------
+
+    def _initialize_mono(self, frame: Frame) -> bool:
+        """MonocularInitialization + CreateInitialMapMonocular: hold a
+        reference frame, window-match against it, reconstruct the two views
+        (H/F RANSAC), make two keyframes and the triangulated points,
+        normalize by the median scene depth and refine with a global BA."""
+        if frame.n_valid <= 100:
+            self._mono_init_frame = None
+            return False
+        ref = self._mono_init_frame
+        if ref is None or ref.n_valid <= 100:
+            self._mono_init_frame = frame
+            return False
+        res = fetch(matching.search_window(
+            self._t(ref.kpts_un), self._t(ref.desc), self._t(ref.valid),
+            self._t(frame.kpts_un), self._t(frame.desc),
+            self._t(frame.valid), radius=100.0,
+            max_dist=self.cfg.th_low * 6, ratio=0.9))
+        idx = res.idx
+        mask = matching.rotation_consistency_filter(
+            ref.angle, frame.angle, np.clip(idx, 0, None), res.mask)
+        if mask.sum() < 100:  # the reference asks for >= 100 matches
+            self._mono_init_frame = frame
+            return False
+
+        uv1 = np.where(mask[:, None], ref.kpts_un, 0).astype(np.float32)
+        uv2 = np.where(mask[:, None], frame.kpts_un[np.clip(idx, 0, None)],
+                       0).astype(np.float32)
+        gen = torch.Generator(device=self.device).manual_seed(frame.fid)
+        valid = self._t(mask)
+        tv = fetch(two_view.reconstruct_two_views(
+            self._t(uv1), self._t(uv2), valid, self.cam.K.to(self.device),
+            idx=two_view.draw_minimal_sets(valid, gen)))
+        if not bool(tv.success):
+            return False
+
+        good = tv.good & mask
+        X = tv.points
+        # median-depth normalization (CreateInitialMapMonocular)
+        med_depth = float(np.median(X[good][:, 2]))
+        if med_depth <= 0:
+            return False
+        X = X / med_depth
+        ref.R = np.eye(3, dtype=np.float32)
+        ref.t = np.zeros(3, np.float32)
+        frame.R = tv.R.astype(np.float32)
+        frame.t = (tv.t / med_depth).astype(np.float32)
+
+        kf1 = self._make_keyframe(ref)
+        kf2 = self._make_keyframe(frame)
+        for slot1 in np.nonzero(good)[0]:
+            slot2 = int(idx[slot1])
+            mp = self.map.create_point(X[slot1].astype(np.float32),
+                                       ref.desc[slot1], kf1.kid,
+                                       float(ref.angle[slot1]))
+            self.map.add_observation(mp, kf1.kid, int(slot1),
+                                     update_links=False)
+            self.map.add_observation(mp, kf2.kid, slot2, update_links=False)
+            self.map.update_point(mp)
+            frame.mp_ids[slot2] = mp
+        self.map.update_connections(kf1.kid)
+        self.map.update_connections(kf2.kid)
+        frame.inlier = frame.mp_ids >= 0
+
+        # global BA over the two-keyframe map (GlobalBundleAdjustemnt(20))
+        self._initial_gba(kf1, kf2)
+        self.ref_kf = kf2.kid
+        self.last_kf_frame_id = frame.fid
+        self._mono_init_frame = None
+        return True
+
+    # the initial GBA's padded problem: 4 cameras (2 used), 1024 points,
+    # 2048 observations
+    INIT_GBA_SHAPE = (4, 1024, 2048)
+
+    def _initial_gba(self, kf1, kf2):
+        """Bundle-adjust the initial pair (kf1 fixed) over the points kf2
+        sees, at most INIT_GBA_SHAPE's, both stages of 10 LM iterations."""
+        pt_ids = [int(m) for m in kf2.mp_ids[kf2.mp_ids >= 0]]
+        if len(pt_ids) < 20:
+            return
+        C, P, O = self.INIT_GBA_SHAPE
+        if len(pt_ids) > P:
+            from ..utils import verbose
+
+            verbose.print_mess(
+                f"mono-init GBA point cap hit: {P} of {len(pt_ids)} points",
+                verbose.Level.VERBOSE)
+        obs_cam, obs_pt, uv = [], [], []
+        pt_index = {mp: i for i, mp in enumerate(pt_ids[:P])}
+        for mp, i in pt_index.items():
+            for kid, slot in self.map.obs.get(mp, {}).items():
+                obs_cam.append(0 if kid == kf1.kid else 1)
+                obs_pt.append(i)
+                uv.append(self.map.keyframes[kid].kpts_un[slot])
+        n_obs = len(obs_cam)
+
+        def pad(a, n, fill=0, dtype=None):
+            a = np.asarray(a, dtype)
+            out = np.full((n,) + a.shape[1:], fill, a.dtype)
+            out[: len(a)] = a
+            return out
+
+        obs_cam = pad(obs_cam, O, 0, np.int32)
+        obs_pt = pad(obs_pt, O, 0, np.int32)
+        valid = pad(np.ones(n_obs, bool), O, False)
+        eye = np.eye(3, dtype=np.float32)
+        prob = local_ba.BAProblem(
+            R=self._t(np.stack([kf1.R, kf2.R] + [eye] * (C - 2))),
+            t=self._t(np.stack([kf1.t, kf2.t]
+                               + [np.zeros(3, np.float32)] * (C - 2))),
+            fixed=self._t(np.array([True, False] + [True] * (C - 2))),
+            cam_valid=self._t(np.array([True, True] + [False] * (C - 2))),
+            X=self._t(pad(self.map.points.pos[pt_ids[:P]], P, 0,
+                          np.float32)),
+            p_valid=self._t(pad(np.ones(len(pt_index), bool), P, False)),
+            obs_cam=self._t(obs_cam), obs_pt=self._t(obs_pt),
+            uv=self._t(pad(uv, O, 0.0, np.float32)),
+            ur=self._t(np.zeros(O, np.float32)),
+            stereo=self._t(np.zeros(O, bool)), valid=self._t(valid),
+            inv_sigma2=self._t(np.full(O, 1.0 / self.cfg.obs_sigma ** 2,
+                                       np.float32)),
+            plan=(local_ba.segment_plan(obs_cam, obs_pt, valid, C, P,
+                                        self.device)
+                  if self.device.type == "cuda" else None))
+        res = fetch(local_ba.bundle_adjust(prob, self.cam, 0.0,
+                                           stage_iters=(10, 10)))
+        kf2.R = res.R[1]
+        kf2.t = res.t[1]
+        self.map.points.pos[pt_ids[:P]] = res.X[: len(pt_index)]
 
     # -- pose tracking -------------------------------------------------------
 
@@ -916,8 +1077,8 @@ class Tracking:
         return kf
 
     def _need_new_keyframe(self, frame: Frame) -> bool:
-        """NeedNewKeyFrame, RGB-D: reference ratio, close-point pressure and
-        the maximum interval."""
+        """NeedNewKeyFrame: reference ratio (0.9 for monocular maps),
+        close-point pressure and the maximum interval."""
         if self.ref_kf is None:
             return False
         ref = self.map.keyframes.get(self.ref_kf)
@@ -927,6 +1088,10 @@ class Tracking:
         # observations (minObs = 3 once the map has > 2 KFs)
         min_obs = 3 if self.map.num_keyframes() > 2 else 2
         ratio = self.cfg.kf_ref_ratio if self.map.num_keyframes() >= 2 else 0.4
+        if self.sensor == "mono" and self.map.num_keyframes() >= 2:
+            # monocular redundancy drops slowly: the reference asks for
+            # thRefRatio 0.9
+            ratio = 0.9
         ref_mps = ref.mp_ids[ref.mp_ids >= 0]
         n_ref = int((self.map.points.n_obs[ref_mps] >= min_obs).sum()) if len(ref_mps) else 0
         tracked = (frame.mp_ids >= 0) & frame.inlier
@@ -1015,6 +1180,7 @@ class Tracking:
         self.state = State.NOT_INITIALIZED
         self.velocity = None
         self.ref_kf = None
+        self._mono_init_frame = None
         self.last_kf_id = None
         self.stats["map_resets"] = self.stats.get("map_resets", 0) + 1
 
