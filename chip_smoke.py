@@ -108,10 +108,25 @@ Phases, each fatal on failure:
      by CUDA-graph replay; the frame step per frame eager and by graph
      replay, its parts, its host wall time and its CUDA kernel count
      (``torch.profiler``); ``pose_lm`` alone, by CUDA events and by graph
-     replay, its plain version and its bounds.
+     replay, its plain version and its bounds;
+ 13. the ORB backend: the quadtree built by g++; ``ORBExtractor`` on the
+     card against the port's CPU run of one rendered 640x480 frame
+     (level-0 candidates with their order and their quadtree selection
+     equal, per-level keypoint Jaccard and descriptor bits at
+     tests/test_torch_orb.py's bars), each stage's graph replay bit for
+     bit against its eager call, the stages' times and device events;
+     ``System(backend="orb").track_rgbd`` at the JAX package's ORB bars (14
+     frames, loop closing off: < 1 cm max, < 5 mm median; 40 frames, loop
+     closing on, twice, counted: every frame OK, < 3 cm, >= 3 keyframes,
+     the second run bit-identical to the first, pose_lm 2 per
+     graph-tracked frame, local_ba 431 per round, no XFeat kernel); the
+     readers phase's TUM directory through ``rgbd_tum --backend orb``
+     (within 1 cm) and ``mono_tum --backend orb`` (>= 1 keyframe).
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
-``{"kernels": [...]}`` with each kernel's numbers, and as its last line
+``{"kernels": [...]}`` with each kernel's numbers (``pose_lm`` and
+``local_ba`` also with ``orb_launches``, their launches on the ORB SLAM
+path), and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is missing.
 """
@@ -124,6 +139,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -217,6 +233,13 @@ RELOC_FRAME, RELOC_OTHER_FRAME = 0, 1
 MONO_FRAMES, MONO_MIN_OK, MONO_MIN_CAPTURED = 18, 12, 8
 # frames the readers phase writes as a TUM sequence
 READER_FRAMES = 12
+# the ORB phase: the JAX package's ORB tests' frame counts
+# (test_slam_integration.py), the frames of the 40 that must go through
+# the tracking stages' graph, the per-level keypoint Jaccard of
+# tests/test_torch_orb.py, and the SLAM path's kernels
+ORB_FRAMES_SHORT, ORB_FRAMES_LONG, ORB_MIN_TRACKED = 14, 40, 30
+ORB_LEVEL_JACCARD = 0.95
+ORB_SLAM_KERNELS = {"pose_lm": None, "local_ba": None}
 
 
 class SmokeFailure(Exception):
@@ -1093,20 +1116,29 @@ def frame_step_phase(model, ck, dev):
 
 
 def _slam_run(n_frames, seq, settings, record_ba=False, profile_from=None,
-              ba_graph=None):
+              ba_graph=None, backend="xfeat", loop=True, graphs_from=None):
     """One ``System.track_rgbd`` run over ``seq``: states, camera-centre
     errors, poses and host wall per frame. ``record_ba`` keeps the BA
     problems local mapping solves; ``profile_from`` traces the frames from
     that index on with ``torch.profiler`` (CUDA activity) and returns the
     device's busy time over their wall time; ``ba_graph`` is a
-    ``LocalBAGraph`` that already holds the BA rounds' graphs."""
+    ``LocalBAGraph`` that already holds the BA rounds' graphs.
+    ``backend`` and ``loop`` (loop closing) configure the System;
+    ``graphs_from`` is an earlier ORB System whose CUDA graphs (the
+    extractor's two stages, the tracking stages, local BA) this run
+    replays."""
     from torch.profiler import ProfilerActivity, profile
 
     from xfeatslam_tpu_torch.slam.system import Sensor, System
 
-    system = System(settings, Sensor.RGBD, enable_loop_closing=True)
+    system = System(settings, Sensor.RGBD, backend=backend,
+                    enable_loop_closing=loop)
     if ba_graph is not None:
         system.local_mapping._ba_graph = ba_graph
+    if graphs_from is not None:
+        system.extractor._graphs = graphs_from.extractor._graphs
+        system.tracking._track_graph = graphs_from.tracking._track_graph
+        system.local_mapping._ba_graph = graphs_from.local_mapping._ba_graph
     problems = []
     if record_ba:
         lm = system.local_mapping
@@ -1945,7 +1977,23 @@ def write_png(path, px):
                 + _png_chunk(b"IEND", b""))
 
 
-def readers_phase():
+def run_example(tag, mod, args, out):
+    """An example's ``main`` as a user runs it, its output kept to the
+    timing lines; fails the run on a non-zero exit."""
+    import io
+
+    buf = io.StringIO()
+    tw = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(args + ["--out", out])
+    wall = time.perf_counter() - tw
+    tail = [ln for ln in buf.getvalue().splitlines() if "tracking time" in ln]
+    print(f"{tag}: {mod.__name__.rsplit('.', 1)[1]} exit {rc} in "
+          f"{wall:.2f} s; " + "; ".join(tail))
+    check(rc == 0, f"{tag}: {mod.__name__} exited {rc}")
+
+
+def readers_phase(root):
     """The dataset readers on a TUM-layout sequence this phase writes
     (READER_FRAMES rendered frames: rgb/*.png 8-bit RGB, depth/*.png
     16-bit at 5000 per metre, rgb.txt, depth.txt, an association file and
@@ -1953,11 +2001,8 @@ def readers_phase():
     port's examples as a user runs them: ``rgbd_tum`` in its dataset mode
     (every frame's pose written, the camera trajectory within 1 cm of the
     truth after a rigid alignment) and the ``mono_tum`` twin (at least two
-    keyframes written)."""
-    import contextlib
-    import io
-    import tempfile
-
+    keyframes written). The sequence stays in ``root`` for the ORB phase;
+    returns (the settings file, the sequence)."""
     from xfeatslam_tpu_torch.examples import mono_tum, rgbd_tum
     from xfeatslam_tpu_torch.utils import io as io_utils
     from xfeatslam_tpu_torch.utils import png, synthetic
@@ -1977,83 +2022,406 @@ def readers_phase():
         "ORBextractor.nLevels: 8", "ORBextractor.iniThFAST: 20",
         "ORBextractor.minThFAST: 7", ""])
     gt_xyz = np.stack([-R.T @ t for (R, t) in seq["poses"]])
-    with tempfile.TemporaryDirectory() as root:
-        for sub in ("rgb", "depth"):
-            os.makedirs(os.path.join(root, sub))
-        lines = {"rgb": [], "depth": [], "assoc": []}
-        t0 = time.perf_counter()
-        for i in range(READER_FRAMES):
-            t = f"{seq['timestamps'][i]:.6f}"
-            name = f"{i:06d}.png"
-            gray = seq["images"][i]
-            write_png(os.path.join(root, "rgb", name),
-                      np.repeat(gray[..., None], 3, -1))
-            depth = np.round(seq["depths"][i] * factor).astype(np.uint16)
-            write_png(os.path.join(root, "depth", name), depth)
-            check(np.array_equal(png.read_gray(os.path.join(
-                root, "rgb", name)), gray), "readers: a gray frame read back "
-                "differs")
-            check(np.array_equal(png.read(os.path.join(
-                root, "depth", name)), depth), "readers: a depth frame read "
-                "back differs")
-            lines["rgb"].append(f"{t} rgb/{name}")
-            lines["depth"].append(f"{t} depth/{name}")
-            lines["assoc"].append(f"{t} rgb/{name} {t} depth/{name}")
-        for key, fname in (("rgb", "rgb.txt"), ("depth", "depth.txt"),
-                           ("assoc", "associations.txt")):
-            with open(os.path.join(root, fname), "w") as f:
-                f.write("# written by chip_smoke.py\n"
-                        + "\n".join(lines[key]) + "\n")
-        cfg = os.path.join(root, "room.yaml")
-        with open(cfg, "w") as f:
-            f.write(yaml)
-        print(f"readers: {READER_FRAMES} frames written as PNG and read back "
-              f"equal in {time.perf_counter() - t0:.2f} s")
-        check(len(io_utils.associate_tum(root)) == READER_FRAMES,
-              "readers: rgb.txt and depth.txt did not associate")
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub))
+    lines = {"rgb": [], "depth": [], "assoc": []}
+    t0 = time.perf_counter()
+    for i in range(READER_FRAMES):
+        t = f"{seq['timestamps'][i]:.6f}"
+        name = f"{i:06d}.png"
+        gray = seq["images"][i]
+        write_png(os.path.join(root, "rgb", name),
+                  np.repeat(gray[..., None], 3, -1))
+        depth = np.round(seq["depths"][i] * factor).astype(np.uint16)
+        write_png(os.path.join(root, "depth", name), depth)
+        check(np.array_equal(png.read_gray(os.path.join(
+            root, "rgb", name)), gray), "readers: a gray frame read back "
+            "differs")
+        check(np.array_equal(png.read(os.path.join(
+            root, "depth", name)), depth), "readers: a depth frame read "
+            "back differs")
+        lines["rgb"].append(f"{t} rgb/{name}")
+        lines["depth"].append(f"{t} depth/{name}")
+        lines["assoc"].append(f"{t} rgb/{name} {t} depth/{name}")
+    for key, fname in (("rgb", "rgb.txt"), ("depth", "depth.txt"),
+                       ("assoc", "associations.txt")):
+        with open(os.path.join(root, fname), "w") as f:
+            f.write("# written by chip_smoke.py\n"
+                    + "\n".join(lines[key]) + "\n")
+    cfg = os.path.join(root, "room.yaml")
+    with open(cfg, "w") as f:
+        f.write(yaml)
+    print(f"readers: {READER_FRAMES} frames written as PNG and read back "
+          f"equal in {time.perf_counter() - t0:.2f} s")
+    check(len(io_utils.associate_tum(root)) == READER_FRAMES,
+          "readers: rgb.txt and depth.txt did not associate")
 
-        def run_example(mod, args, out):
-            buf = io.StringIO()
-            tw = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = mod.main(args + ["--out", out])
-            wall = time.perf_counter() - tw
-            tail = [ln for ln in buf.getvalue().splitlines()
-                    if "tracking time" in ln]
-            print(f"readers: {mod.__name__.rsplit('.', 1)[1]} exit {rc} in "
-                  f"{wall:.2f} s; " + "; ".join(tail))
-            check(rc == 0, f"readers: {mod.__name__} exited {rc}")
+    out = os.path.join(root, "out_rgbd")
+    run_example("readers", rgbd_tum,
+                [cfg, root, os.path.join(root, "associations.txt")], out)
+    est_t, est = io_utils.load_trajectory_tum(
+        os.path.join(out, "CameraTrajectory.txt"))
+    kf_t, _ = io_utils.load_trajectory_tum(
+        os.path.join(out, "KeyFrameTrajectory.txt"))
+    ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz,
+                            est_t, est[:, :3])
+    print(f"readers: rgbd_tum wrote {len(est_t)} camera poses and "
+          f"{len(kf_t)} keyframes; ATE RMSE {ate * 1e3:.4f} mm")
+    check(len(est_t) == READER_FRAMES and len(kf_t) >= 1,
+          "readers: rgbd_tum's trajectories are incomplete")
+    check(ate < 0.01, "readers: rgbd_tum's trajectory is off by >= 1 cm")
 
-        out = os.path.join(root, "out_rgbd")
-        run_example(rgbd_tum, [cfg, root,
-                               os.path.join(root, "associations.txt")], out)
-        est_t, est = io_utils.load_trajectory_tum(
-            os.path.join(out, "CameraTrajectory.txt"))
-        kf_t, _ = io_utils.load_trajectory_tum(
-            os.path.join(out, "KeyFrameTrajectory.txt"))
-        ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz,
-                                est_t, est[:, :3])
-        print(f"readers: rgbd_tum wrote {len(est_t)} camera poses and "
-              f"{len(kf_t)} keyframes; ATE RMSE {ate * 1e3:.4f} mm")
-        check(len(est_t) == READER_FRAMES and len(kf_t) >= 1,
-              "readers: rgbd_tum's trajectories are incomplete")
-        check(ate < 0.01, "readers: rgbd_tum's trajectory is off by >= 1 cm")
-
-        out = os.path.join(root, "out_mono")
-        run_example(mono_tum, [cfg, root], out)
-        kf_t, kf = io_utils.load_trajectory_tum(
-            os.path.join(out, "KeyFrameTrajectory.txt"))
-        check(len(kf_t) >= 2,
-              f"readers: mono_tum wrote {len(kf_t)} keyframes")
-        ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz,
-                                kf_t, kf[:, :3], scale=True)
-        print(f"readers: mono_tum wrote {len(kf_t)} keyframes; "
-              f"similarity-aligned ATE RMSE {ate * 1e3:.4f} mm")
-        check(np.isfinite(kf).all(),
-              "readers: mono_tum's keyframe trajectory is not finite")
+    out = os.path.join(root, "out_mono")
+    run_example("readers", mono_tum, [cfg, root], out)
+    kf_t, kf = io_utils.load_trajectory_tum(
+        os.path.join(out, "KeyFrameTrajectory.txt"))
+    check(len(kf_t) >= 2,
+          f"readers: mono_tum wrote {len(kf_t)} keyframes")
+    ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz,
+                            kf_t, kf[:, :3], scale=True)
+    print(f"readers: mono_tum wrote {len(kf_t)} keyframes; "
+          f"similarity-aligned ATE RMSE {ate * 1e3:.4f} mm")
+    check(np.isfinite(kf).all(),
+          "readers: mono_tum's keyframe trajectory is not finite")
+    return cfg, seq
 
 
-def run(batch: int):
+def stage_events(fn):
+    """The device events (kernels and copies) of one call of ``fn``, from
+    ``torch.profiler``'s raw kineto records: their count, their summed
+    device ms, and the three names with the most device ms (name's first
+    60 characters, calls, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        n, ns = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (n + 1, ns + e.duration_ns())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:3]
+    return (len(dev), sum(e.duration_ns() for e in dev) / 1e6,
+            [(name[:60], n, round(ns / 1e6, 4)) for name, (n, ns) in top])
+
+
+def _orb_keyed(o):
+    """An extractor output's valid keypoints keyed by (octave, pixel at
+    that level) -> row (the sub-pixel offset follows the FAST response,
+    which the resized levels move by ~1e-4)."""
+    v = o["valid"][0]
+    lvl_xy = o["kpts"][0][v] / 1.2 ** o["octave"][0][v][:, None]
+    return {(int(oc), tuple(np.round(p).astype(np.int64))): i
+            for i, (p, oc) in enumerate(zip(lvl_xy, o["octave"][0][v]))}
+
+
+def orb_extractor_phase():
+    """The ORB extractor on the card against the port's own CPU run of one
+    rendered 640x480 frame (tests/test_torch_orb.py's bars: level-0
+    candidates and their quadtree selection equal, per-level keypoint
+    Jaccard >= ORB_LEVEL_JACCARD, >= 99% of the shared keypoints'
+    descriptor bits; the resized levels' largest gap printed), each
+    stage's graph replay against the eager call on the card bit for bit,
+    and the stages' times: candidates and describe by replay (CUDA
+    events, with the stage's device events, busy ms and costliest kernels
+    from ``torch.profiler``), the quadtree on the host, the whole call."""
+    from xfeatslam_tpu_torch import _build
+    from xfeatslam_tpu_torch.models import orb
+    from xfeatslam_tpu_torch.optim.track_step import fetch
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    _build.load_host("quadtree")
+    print(f"orb: quadtree {_build.host_library_path('quadtree').name} "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s (g++)")
+    img = synthetic.make_sequence(n_frames=1)["images"][0]
+    card = orb.ORBExtractor(nfeatures=K)
+    cpu = orb.ORBExtractor(nfeatures=K, device="cpu")
+    sizes, caps, mins = card.geometry(*img.shape)
+    thr = (card.ini_threshold, card.min_threshold)
+    x_cpu = torch.from_numpy(img.astype(np.float32))
+    x_dev = x_cpu.cuda()
+    rep = fetch(card.candidates(x_cpu, sizes, caps, mins))
+    eager = fetch(orb.orb_candidates(x_dev, sizes, caps, mins, *thr))
+    ref = [tuple(a.numpy() for a in lvl)
+           for lvl in orb.orb_candidates(x_cpu, sizes, caps, mins, *thr)]
+    check(all(np.array_equal(a, b) for la, lb in zip(rep, eager)
+              for a, b in zip(la, lb)),
+          "orb: the candidates' replay differs from the eager call")
+    check(all(np.array_equal(a, b) for a, b in zip(rep[0], ref[0])),
+          "orb: level-0 candidates (xy, score, valid, order) differ from "
+          "the CPU's")
+    jac = [round(jaccard(pixel_set(rep[lvl][0], rep[lvl][2]),
+                         pixel_set(ref[lvl][0], ref[lvl][2])), 4)
+           for lvl in range(len(sizes))]
+    # the resized levels, card against CPU (antialiased bilinear)
+    level_gap = [float((orb._level_image(x_dev, lvl, h, w).cpu()
+                        - orb._level_image(x_cpu, lvl, h, w)).abs().max())
+                 for lvl, (h, w) in enumerate(sizes)]
+    kp_c, va_c, keep_c = card.select(rep, sizes)
+    kp_r, va_r, _ = cpu.select(ref, sizes)
+    check(np.array_equal(kp_c[0].numpy(), kp_r[0].numpy())
+          and np.array_equal(va_c[0].numpy(), va_r[0].numpy()),
+          "orb: the level-0 quadtree selection differs from the CPU's")
+    kp_d = [k.cuda() for k in kp_c]
+    va_d = [v.cuda() for v in va_c]
+    d_rep = fetch(card.descriptors(x_dev, sizes, kp_d, va_d))
+    d_eager = fetch(orb.orb_describe_all(x_dev, sizes, kp_d, va_d))
+    check(all(np.array_equal(a, b) for la, lb in zip(d_rep, d_eager)
+              for a, b in zip(la, lb)),
+          "orb: the descriptors' replay differs from the eager call")
+    out_c, out_r = card(img), cpu(img)
+    kc, kr = _orb_keyed(out_c), _orb_keyed(out_r)
+    lvl_j = []
+    for lvl in range(len(sizes)):
+        a = {k for k in kc if k[0] == lvl}
+        b = {k for k in kr if k[0] == lvl}
+        lvl_j.append(round(jaccard(a, b), 4))
+    shared = sorted(set(kc) & set(kr))
+    bits = float((out_c["desc"][0][out_c["valid"][0]][[kc[k] for k in shared]]
+                  == out_r["desc"][0][out_r["valid"][0]][[kr[k] for k in shared]]
+                  ).mean())
+    n_valid = int(out_c["valid"].sum())
+    print(f"orb: {W}x{H}, {len(sizes)} levels {list(sizes)}; card against "
+          f"CPU: level-0 candidates equal (xy, score, valid, order), "
+          f"candidate Jaccard per level {jac}, level-0 quadtree selection "
+          f"equal; extractor {n_valid} keypoints (CPU "
+          f"{int(out_r['valid'].sum())}), keypoint Jaccard per level "
+          f"{lvl_j}, descriptor bits equal {bits:.6f} on {len(shared)} "
+          f"shared keypoints; both stages' replays bit-identical to the "
+          f"eager calls; level images max |card - CPU| "
+          f"{[f'{g:.3e}' for g in level_gap]}")
+    check(lvl_j[0] == 1.0 and min(jac) >= ORB_LEVEL_JACCARD
+          and min(lvl_j) >= ORB_LEVEL_JACCARD,
+          "orb: card and CPU keypoints part beyond the test bars")
+    check(bits >= 0.99, "orb: descriptor bits part beyond the test bar")
+    check(n_valid >= 0.9 * K, f"orb: only {n_valid} keypoints")
+
+    def qt():
+        t = time.perf_counter()
+        card.select(rep, sizes)
+        return (time.perf_counter() - t) * 1e3
+
+    def whole():
+        t = time.perf_counter()
+        card(img)
+        return (time.perf_counter() - t) * 1e3
+
+    for _ in range(3):
+        whole()
+    ev_c, busy_c, top_c = stage_events(
+        lambda: card.candidates(x_dev, sizes, caps, mins))
+    ev_d, busy_d, top_d = stage_events(
+        lambda: card.descriptors(x_dev, sizes, kp_d, va_d))
+    report = {
+        "candidates_replay_ms": round(cuda_ms(
+            lambda: card.candidates(x_dev, sizes, caps, mins)), 4),
+        "candidates_device_events": ev_c,
+        "candidates_device_busy_ms": round(busy_c, 4),
+        "candidates_top_kernels": top_c,
+        "candidates_eager_ms": round(cuda_ms(
+            lambda: orb.orb_candidates(x_dev, sizes, caps, mins, *thr),
+            iters=5, warmup=1), 4),
+        "quadtree_host_ms": round(float(np.median([qt() for _ in range(20)])),
+                                  4),
+        "describe_replay_ms": round(cuda_ms(
+            lambda: card.descriptors(x_dev, sizes, kp_d, va_d)), 4),
+        "describe_device_events": ev_d,
+        "describe_device_busy_ms": round(busy_d, 4),
+        "describe_top_kernels": top_d,
+        "describe_eager_ms": round(cuda_ms(
+            lambda: orb.orb_describe_all(x_dev, sizes, kp_d, va_d),
+            iters=5, warmup=1), 4),
+        "extractor_call_wall_ms": round(float(np.median(
+            [whole() for _ in range(20)])), 4),
+        "capture_s": [round(t, 3) for g in card._graphs or ()
+                      for t in g.capture_seconds],
+    }
+    print(f"orb extractor timings ({W}x{H}, K={K}; CUDA events, "
+          "host wall for the quadtree and the whole call): "
+          + json.dumps(report))
+    return report
+
+
+def _orb_map_equal(a, b):
+    """Two Systems' maps bit for bit: keyframe poses and bindings, every
+    point's position, descriptor and liveness."""
+    ma, mb = a.map, b.map
+    if sorted(ma.keyframes) != sorted(mb.keyframes):
+        return False
+    for k, ka in ma.keyframes.items():
+        kb = mb.keyframes[k]
+        if not (np.array_equal(ka.R, kb.R) and np.array_equal(ka.t, kb.t)
+                and np.array_equal(ka.mp_ids, kb.mp_ids)):
+            return False
+    n = ma.points.n
+    return n == mb.points.n and all(
+        np.array_equal(getattr(ma.points, f)[:n], getattr(mb.points, f)[:n])
+        for f in ("pos", "desc", "alive"))
+
+
+def orb_slam_phase(ck):
+    """``System(backend="orb").track_rgbd`` on the rendered sequence at
+    640x480 with the bars of the JAX package's ORB tests
+    (test_slam_integration.py): 14 frames with loop closing off (every
+    frame OK, max < 1 cm, median < 5 mm, >= 1 keyframe); 40 frames with
+    loop closing on, twice in one process, the counters zeroed before each
+    (every frame OK, max < 3 cm, >= 3 keyframes, no loop, >= ORB_MIN_TRACKED
+    frames through the tracking stages' graph, the second run's poses and
+    map bit-identical to the first's). The second run replays the first's
+    graphs: its wall per frame, spans and launches (pose_lm 2 per
+    graph-tracked frame, local_ba 431 per BA round, no XFeat kernel).
+    Returns the second run's launch counts."""
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.slam.settings import Settings
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(n_frames=ORB_FRAMES_LONG)
+    Km = seq["K"]
+    settings = Settings(
+        cam=Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2]]),
+        bf=40.0, th_depth=3.0, depth_map_factor=1.0, n_features=K)
+    short = _slam_run(ORB_FRAMES_SHORT, seq, settings, backend="orb",
+                      loop=False)
+    errs = short["errs"]
+    kfs = short["system"].map.num_keyframes()
+    print(f"orb slam, {ORB_FRAMES_SHORT} frames, loop closing off: "
+          f"{short['states'].count('OK')} OK, camera centre error max "
+          f"{errs.max() * 1e3:.3f} mm, median {np.median(errs) * 1e3:.3f} "
+          f"mm; {kfs} keyframes")
+    check(short["states"] == ["OK"] * ORB_FRAMES_SHORT,
+          f"orb slam short: a frame was not OK: {short['states']}")
+    check(errs.max() < 0.01 and np.median(errs) < 0.005 and kfs >= 1,
+          "orb slam short: beyond the JAX package's 14-frame bars")
+    runs = []
+    for r in range(2):
+        prev = runs[0]["system"] if runs else None
+        calls0 = prev.tracking._track_graph.calls if prev else 0
+        ck.reset_launch_counts()
+        run = _slam_run(ORB_FRAMES_LONG, seq, settings, backend="orb",
+                        graphs_from=prev)
+        run["counts"] = path_counts(
+            ck, f"System(backend='orb').track_rgbd, {ORB_FRAMES_LONG} "
+            f"frames, run {r + 1}", ORB_SLAM_KERNELS)
+        run["tracked"] = run["system"].tracking._track_graph.calls - calls0
+        st = run["stats"] = run["system"].shutdown()
+        errs = run["errs"]
+        rounds = len(run["system"].local_mapping.ba_seconds)
+        n_lm = run["counts"]["pose_lm"]
+        print(f"orb slam run {r + 1}: {run['states'].count('OK')} of "
+              f"{ORB_FRAMES_LONG} OK, camera centre error max "
+              f"{errs.max() * 1e3:.3f} mm, median "
+              f"{np.median(errs) * 1e3:.3f} mm; {st['keyframes']} keyframes, "
+              f"{st['map_points']} map points, loops closed "
+              f"{st['loops_closed']}; {run['tracked']} frames through the "
+              f"tracking stages' graph; pose_lm {n_lm} launches "
+              f"({2 * run['tracked']} by those replays, "
+              f"{n_lm - 2 * run['tracked']} eager); local_ba "
+              f"{run['counts']['local_ba']} launches in {rounds} BA rounds")
+        check(run["states"] == ["OK"] * ORB_FRAMES_LONG,
+              f"orb slam run {r + 1}: a frame was not OK: {run['states']}")
+        check(errs.max() < 0.03 and st["keyframes"] >= 3,
+              f"orb slam run {r + 1}: beyond the JAX package's 40-frame "
+              "bars")
+        check(st["loops_closed"] == 0,
+              f"orb slam run {r + 1}: {st['loops_closed']} loops closed")
+        check(run["tracked"] >= ORB_MIN_TRACKED and n_lm >= 2 * run["tracked"],
+              f"orb slam run {r + 1}: too few frames through the graph")
+        # run 1's counts hold its captures' warm-up calls too
+        check(r == 0 or run["counts"]["local_ba"] == 431 * rounds,
+              f"orb slam run {r + 1}: local_ba launches are not 431 per "
+              "round")
+        runs.append(run)
+    a, b = runs
+    same = all(np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])
+               for p, q in zip(a["poses"], b["poses"]))
+    same_map = _orb_map_equal(a["system"], b["system"])
+    print(f"orb slam: run 2 against run 1: every pose bit-identical {same}, "
+          f"map bit-identical {same_map}")
+    check(same and same_map, "orb slam: run 2 differs from run 1")
+
+    def pct(xs, q):
+        return round(float(np.percentile(np.asarray(xs) * 1e3, q)), 4)
+
+    spans = b["system"].timer.samples
+    walls = b["walls"]
+    report = {
+        "wall_per_frame_ms": {"median": pct(walls[2:], 50),
+                              "p90": pct(walls[2:], 90)},
+        "track_ms": {"median": pct(spans["track"][2:], 50),
+                     "p90": pct(spans["track"][2:], 90)},
+        "backend_ms": {"median": pct(spans["backend"][2:], 50),
+                       "p90": pct(spans["backend"][2:], 90)},
+        # inside track: the frame built (the extractor's two replays and
+        # the quadtree, undistortion, depth), the host's inputs of the
+        # tracking stages, their replay with its one read
+        "track_extract_ms": {"median": pct(spans["track.extract"][2:], 50),
+                             "p90": pct(spans["track.extract"][2:], 90)},
+        "track_snapshot_ms": {"median": pct(spans["track.snapshot"][1:], 50),
+                              "p90": pct(spans["track.snapshot"][1:], 90)},
+        "track_stages_ms": {"median": pct(spans["track.frame_step"][1:], 50),
+                            "p90": pct(spans["track.frame_step"][1:], 90)},
+        "frame_0_ms": round(walls[0] * 1e3, 4),
+        "run_1_frame_1_ms": round(a["walls"][1] * 1e3, 4),
+        "local_ba_ms": [round(t * 1e3, 4)
+                        for _, t, _ in b["system"].local_mapping.ba_seconds],
+    }
+    print(f"orb slam timings (host wall, run 2, {ORB_FRAMES_LONG} frames at "
+          f"{W}x{H}, K={K}): " + json.dumps(report))
+    return b["counts"]
+
+
+def orb_readers_phase(root, cfg, seq):
+    """BASELINE config 1's shape: ``examples/rgbd_tum --backend orb`` on the
+    TUM directory the readers phase wrote (the camera trajectory within 1
+    cm of the truth, as the XFeat run), then ``examples/mono_tum --backend
+    orb`` on it (>= 1 keyframe, the bar of the JAX package's
+    test_examples_cli.py)."""
+    from xfeatslam_tpu_torch.examples import mono_tum, rgbd_tum
+    from xfeatslam_tpu_torch.utils import io as io_utils
+
+    gt_xyz = np.stack([-R.T @ t for (R, t) in seq["poses"]])
+    out = os.path.join(root, "out_rgbd_orb")
+    run_example("orb readers", rgbd_tum,
+                [cfg, root, os.path.join(root, "associations.txt"),
+                 "--backend", "orb"], out)
+    est_t, est = io_utils.load_trajectory_tum(
+        os.path.join(out, "CameraTrajectory.txt"))
+    kf_t, _ = io_utils.load_trajectory_tum(
+        os.path.join(out, "KeyFrameTrajectory.txt"))
+    ate = io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz, est_t,
+                            est[:, :3])
+    print(f"orb readers: rgbd_tum --backend orb wrote {len(est_t)} camera "
+          f"poses and {len(kf_t)} keyframes; ATE RMSE {ate * 1e3:.4f} mm")
+    check(len(est_t) == READER_FRAMES and len(kf_t) >= 1,
+          "orb readers: rgbd_tum's trajectories are incomplete")
+    check(ate < 0.01, "orb readers: rgbd_tum's trajectory is off by >= 1 cm")
+    out = os.path.join(root, "out_mono_orb")
+    run_example("orb readers", mono_tum, [cfg, root, "--backend", "orb"], out)
+    kf_t, kf = io_utils.load_trajectory_tum(
+        os.path.join(out, "KeyFrameTrajectory.txt"))
+    ate = (io_utils.ate_rmse(np.asarray(seq["timestamps"]), gt_xyz, kf_t,
+                             kf[:, :3], scale=True) if len(kf_t) >= 2
+           else float("nan"))
+    print(f"orb readers: mono_tum --backend orb wrote {len(kf_t)} "
+          f"keyframes; similarity-aligned ATE RMSE {ate * 1e3:.4f} mm")
+    check(len(kf_t) >= 1 and np.isfinite(kf).all(),
+          f"orb readers: mono_tum wrote {len(kf_t)} keyframes")
+
+
+def orb_phase(ck, root, cfg, seq):
+    """The ORB backend: the extractor, RGB-D SLAM, the readers. Returns
+    the SLAM run's launch counts."""
+    orb_extractor_phase()
+    counts = orb_slam_phase(ck)
+    orb_readers_phase(root, cfg, seq)
+    return counts
+
+
+def run(batch: int, root: str):
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -2198,7 +2566,7 @@ def run(batch: int):
 
     # ---- monocular SLAM; the dataset readers through the examples ----
     mono_phase(ck)
-    readers_phase()
+    reader_cfg, reader_seq = readers_phase(root)
 
     # ---- local BA on the card, eager and by graph replay ----
     _, ba_row = local_ba_phase(ck, problems, run["system"].settings, dev)
@@ -2327,6 +2695,13 @@ def run(batch: int):
         "ms": ba_row["ms"], "plain_ms": ba_row["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+
+    # ---- the ORB backend: extractor, RGB-D SLAM, readers ----
+    orb_launches = orb_phase(ck, root, reader_cfg, reader_seq)
+    # the two kernels' launches on the ORB SLAM path (its second run)
+    for row in rows_out:
+        if row["name"] in ORB_SLAM_KERNELS:
+            row["orb_launches"] = orb_launches[row["name"]]
     print(json.dumps({"kernels": rows_out}))
 
 
@@ -2342,7 +2717,8 @@ def main() -> int:
               "needs one CUDA device", file=sys.stderr)
         return 1
     try:
-        run(args.batch)
+        with tempfile.TemporaryDirectory() as root:
+            run(args.batch, root)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -133,6 +133,12 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch.examples import (mono_tum, mono_kitti,\n"
         "    mono_euroc, mono_tum_vi)\n"
         "import chip_smoke\n"
+        "import numpy as np\n"
+        "from xfeatslam_tpu_torch.models import orb\n"
+        "sel = orb.distribute_quadtree(\n"
+        "    np.array([[1, 1], [3, 3]], np.float32),\n"
+        "    np.array([1, 2], np.float32), 1, (0, 0, 4, 4))\n"
+        "assert sel.tolist() == [1], sel\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'xfeatslam_tpu')]\n"
         "assert not bad, bad\n"

@@ -159,7 +159,8 @@ def _settings():
     (dict(sensor=tsys.Sensor.IMU_MONOCULAR), "15"),
     (dict(sensor=tsys.Sensor.IMU_STEREO), "15"),
     (dict(sensor=tsys.Sensor.IMU_RGBD), "15"),
-    (dict(backend="orb"), "13"),
+    # the ORB backend is ported; its stereo sensor is not
+    (dict(backend="orb", sensor=tsys.Sensor.STEREO), "14"),
     # loop closing is ported; its inertial branch (the 4-DoF essential
     # graph of an IMU-initialized map) is not
     (dict(enable_loop_closing=True, imu_initialized=True), "15"),

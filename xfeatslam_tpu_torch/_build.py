@@ -1,10 +1,13 @@
-"""Build the CUDA kernels in ``csrc/`` at first use and load them.
+"""Build the CUDA kernels and host libraries in ``csrc/`` at first use and
+load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``_build/`` (listed in ``.gitignore``), named by a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
-The library is loaded with ``ctypes``. Nothing here runs at import time.
+The host libraries (``csrc/<name>.cpp``, the ORB quadtree) are built the
+same way by ``g++``. A library is loaded with ``ctypes``; a failed build
+raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 KERNELS = ("detect_candidates", "desc_sample", "mnn_pairs", "pose_lm",
            "local_ba")
+# the host libraries' (csrc/<name>.cpp) g++ flags
+_HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
@@ -114,3 +119,41 @@ def load(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(library_path(name)))
                 _loaded[name] = lib
     return lib
+
+
+def host_library_path(name: str) -> Path:
+    """Where the host library for the current source of ``name`` lives."""
+    src = (SRC_DIR / f"{name}.cpp").read_bytes()
+    h = hashlib.sha256(src + " ".join(_HOST_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` (``csrc/<name>.cpp``), compiled by
+    g++ first if needed. A failed build raises."""
+    key = f"host:{name}"
+    with _lock:
+        lib = _loaded.get(key)
+        if lib is not None:
+            return lib
+        out = host_library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(
+                    "xfeatslam_tpu_torch: g++ not found on PATH; "
+                    f"csrc/{name}.cpp cannot be built")
+            res = subprocess.run(
+                [gxx, *_HOST_FLAGS, "-o", str(tmp),
+                 str(SRC_DIR / f"{name}.cpp")],
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"the C++ build failed for csrc/{name}.cpp:\n"
+                    f"{res.stdout}{res.stderr}")
+            os.replace(tmp, out)
+        lib = _loaded[key] = ctypes.CDLL(str(out))
+        return lib

@@ -10,7 +10,8 @@ Each takes ``SETTINGS.yaml`` and its dataset's layout (below), or
 ``KeyFrameTrajectory.txt`` in TUM format, prints the median and mean
 tracking time and, for the synthetic run, the keyframes' ATE against the
 rendered truth after a similarity alignment (a monocular map's scale is
-arbitrary). The device defaults to CUDA.
+arbitrary). The device defaults to CUDA; ``--backend orb`` (or ``USE_ORB``)
+tracks ORB features.
 
   tum     SETTINGS SEQ_DIR                  (SEQ_DIR/rgb.txt)
   kitti   SETTINGS SEQ_DIR                  (image_0/*.png, times.txt)
@@ -74,6 +75,9 @@ def main(argv, dataset: str) -> int:
                     help="HxW of the rendered frames")
     ap.add_argument("--features", type=int, default=1000,
                     help="keypoints per rendered frame")
+    ap.add_argument("--backend", default=None, choices=["xfeat", "orb"],
+                    help="feature backend (default: orb when the USE_ORB "
+                    "environment variable is set, else xfeat)")
     args = ap.parse_args(argv)
 
     from ..ops.camera import Pinhole
@@ -106,7 +110,7 @@ def main(argv, dataset: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
-    system = System(settings, Sensor.MONOCULAR,
+    system = System(settings, Sensor.MONOCULAR, backend=args.backend,
                     enable_loop_closing=not args.no_loop, device=args.device)
     times = []
     for n_seq, frames in enumerate(runs):

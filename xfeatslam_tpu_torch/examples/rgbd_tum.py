@@ -5,8 +5,10 @@ The port's twin of ``examples/rgbd_tum.py``:
 
     python -m xfeatslam_tpu_torch.examples.rgbd_tum SETTINGS.yaml SEQ_DIR
         ASSOCIATION.txt [--out DIR] [--no-loop] [--device cpu]
+        [--backend xfeat|orb]
     python -m xfeatslam_tpu_torch.examples.rgbd_tum --synthetic 60 --out DIR
         [--device cpu] [--size 480x640] [--features 1000] [--no-loop]
+        [--backend xfeat|orb]
 
 The dataset mode reads the settings with ``Settings.from_yaml`` and the
 frames through ``utils/io.load_tum_association`` (PNGs decoded by
@@ -15,7 +17,8 @@ frames through ``utils/io.load_tum_association`` (PNGs decoded by
 prints the ATE against the rendered truth. Either tracks with
 ``System.track_rgbd`` (loop closing on unless ``--no-loop``), writes
 ``CameraTrajectory.txt`` and ``KeyFrameTrajectory.txt`` in TUM format and
-prints the median and mean tracking time. The device defaults to CUDA.
+prints the median and mean tracking time. The device defaults to CUDA; the
+feature backend to ORB when ``USE_ORB`` is set, else XFeat.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ def main(argv=None):
     ap.add_argument("--size", default="480x640", help="HxW of the frames")
     ap.add_argument("--features", type=int, default=1000,
                     help="keypoints per frame (ORBextractor.nFeatures)")
+    ap.add_argument("--backend", default=None, choices=["xfeat", "orb"],
+                    help="feature backend (default: orb when the USE_ORB "
+                    "environment variable is set, else xfeat)")
     args = ap.parse_args(argv)
     if not args.synthetic and None in (args.settings, args.sequence,
                                        args.association):
@@ -77,7 +83,7 @@ def main(argv=None):
         data = io_utils.load_tum_association(args.sequence, args.association)
         n, frame = len(data), data.read
     os.makedirs(args.out, exist_ok=True)
-    system = System(settings, Sensor.RGBD,
+    system = System(settings, Sensor.RGBD, backend=args.backend,
                     enable_loop_closing=not args.no_loop, device=args.device)
 
     times = []

@@ -30,6 +30,18 @@ ORB_TH_LOW = 50.0
 INVALID = 1e9
 
 
+class MatchProfile(NamedTuple):
+    """Distance semantics per feature backend (the USE_ORB switch)."""
+
+    binary: bool
+    th_high: float
+    th_low: float
+
+
+XFEAT_PROFILE = MatchProfile(False, TH_HIGH, TH_LOW)
+ORB_PROFILE = MatchProfile(True, ORB_TH_HIGH, ORB_TH_LOW)
+
+
 class MatchResult(NamedTuple):
     idx: torch.Tensor   # (N,) best column per row (-1 if unmatched)
     dist: torch.Tensor  # (N,) distance of the match

@@ -10,7 +10,9 @@ device and never reads a device value on the host: both widen passes are
 computed and selected with ``torch.where``, as the JAX graph does, and
 scalar settings are Python numbers. The caller fetches the result once
 (``fetch``). On the card the whole frame step is captured as one CUDA
-graph and replayed (``RgbdFrameStepGraph``).
+graph and replayed (``RgbdFrameStepGraph``); a frame built outside the
+step (ORB) replays both tracking stages as one graph
+(``TwoStageTrackGraph``).
 
 Two configurations cover the two tracking stages:
   - motion-model step: fresh bindings, widen x2 when matches are scarce
@@ -135,12 +137,17 @@ def match_pose_step(R0, t0,
     n_matched = mask.sum(dtype=torch.int32)
 
     # ---- scatter matches to keypoint slots; slot N collects the rest ----
+    # Two map points at exactly the same distance to one keypoint both
+    # survive the matcher (common with integer Hamming distances): the
+    # later row wins, as a sequential scatter on the CPU (and the JAX
+    # package's) does, by a max that gives the same bits on the card
     N = kpt_uv.shape[0]
     M = pos_w.shape[0]
     rows = torch.arange(M, dtype=torch.int32, device=pos_w.device)
     slot_mp = torch.full((N + 1,), -1, dtype=torch.int32, device=pos_w.device)
-    slot_mp = slot_mp.scatter(0, torch.where(mask, idx, N).long(),
-                              torch.where(mask, rows, -1))[:N]
+    slot_mp = slot_mp.scatter_reduce(
+        0, torch.where(mask, idx, N).long(), torch.where(mask, rows, -1),
+        "amax")[:N]
     new_valid = slot_mp >= 0
     Xw_new = pos_w[slot_mp.long().clamp(min=0)]
     # union with the earlier bindings (new ones fill only free slots)
@@ -317,6 +324,8 @@ class CapturedCalls:
         self._graphs: dict = {}
         # host seconds of each capture (warm-up included), in order
         self.capture_seconds: list = []
+        # calls served, the capturing ones included
+        self.calls = 0
 
     def captured_launches(self) -> list:
         """The kernel launches each captured graph makes per replay."""
@@ -331,6 +340,7 @@ class CapturedCalls:
             for dst, src in zip(entry.inputs, tensors):
                 dst.copy_(src, non_blocking=True)
         entry.graph.replay()
+        self.calls += 1
         for w in ck._WRAPPERS:
             w.launches += entry.launches.get(w.__name__, 0)
         return entry.outputs
@@ -402,6 +412,43 @@ class RgbdFrameStepGraph(CapturedCalls):
                 self.model, *inputs, cam, *scalars,
                 num_keypoints=flags[0], n_levels=flags[1],
                 has_depth=flags[2])
+
+        return self.replay((tuple(float(c) for c in cam), scalars, flags),
+                           tensors, run)
+
+
+class TwoStageTrackGraph(CapturedCalls):
+    """``two_stage_track_step`` on a frame built outside the step (the ORB
+    frames), captured and replayed (``CapturedCalls``): the pose LM's two
+    launches and the matchers' tensor ops by one replay. The key holds,
+    besides the tensor arguments' shapes and dtypes, the camera's
+    intrinsics and distortion, every Python scalar (bf, both radii,
+    max_dist, ratio, widen_below, scale_factor, img_w, img_h) and the
+    static flags (binary, n_levels). Returns (stage-1 result, stage-2
+    result), the graph's static outputs."""
+
+    def __init__(self, device):
+        super().__init__(device, "two_stage_track_step")
+
+    def __call__(self, R0, t0,
+                 pos1, desc1, valid1, angle1, octave1, ids1,
+                 pos2, desc2, valid2, angle2, octave2, ids2, dmax2,
+                 kpt_uv, kpt_desc, kpt_valid, kpt_angle, kpt_octave, obs_ur,
+                 inv_sigma2, cam: Pinhole, bf,
+                 radius1, radius2, max_dist, ratio, widen_below, scale_factor,
+                 img_w, img_h, binary: bool = False, n_levels: int = 1):
+        tensors = (R0, t0, pos1, desc1, valid1, angle1, octave1, ids1,
+                   pos2, desc2, valid2, angle2, octave2, ids2, dmax2,
+                   kpt_uv, kpt_desc, kpt_valid, kpt_angle, kpt_octave, obs_ur,
+                   inv_sigma2)
+        scalars = tuple(float(x) for x in (
+            bf, radius1, radius2, max_dist, ratio)) + (int(widen_below),) \
+            + tuple(float(x) for x in (scale_factor, img_w, img_h))
+        flags = (bool(binary), int(n_levels))
+
+        def run(*inputs):
+            return two_stage_track_step(*inputs, cam, *scalars,
+                                        binary=flags[0], n_levels=flags[1])
 
         return self.replay((tuple(float(c) for c in cam), scalars, flags),
                            tensors, run)

@@ -1,14 +1,14 @@
 """Frame construction: extraction -> undistortion -> depth to virtual right.
 
-Counterpart of ``xfeatslam_tpu/slam/frame.py`` (the XFeat Frame
-constructors of ORB-SLAM3's Frame.cc, RGB-D): extraction, undistortion and
-the depth lookup run on the extractor's device and come back to the host
-in one transfer. The JAX package gates depth with ``cv2.erode`` /
-``cv2.dilate`` over the whole map; here the 3x3 minimum and maximum are 9
+Counterpart of ``xfeatslam_tpu/slam/frame.py`` (the Frame constructors of
+ORB-SLAM3's Frame.cc, RGB-D and monocular, XFeat or ORB): extraction,
+undistortion and the depth lookup run on the extractor's device and come
+back to the host in one transfer (after the ORB extractor's own two
+reads). The JAX package gates depth with ``cv2.erode`` / ``cv2.dilate``
+over the whole map; here the 3x3 minimum and maximum are 9
 clamped reads at the keypoints (``track_step.keypoint_depth``), which
 matches cv2's default border (only in-image pixels count). The stereo and
-fisheye constructors wait for ROADMAP item 14, the monocular one for item
-12.
+fisheye constructors wait for ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -87,47 +87,53 @@ class FramePipeline:
             depth_m = depth_m / self.depth_factor
         return depth_m
 
+    def _extract(self, gray: np.ndarray) -> dict:
+        """Run the configured extractor and undistort its keypoints on the
+        extractor's device; unbatched tensors. XFeat runs the network on
+        the device; ORB (another backend) hands back numpy arrays, which go
+        to the device for the undistortion and the depth lookup."""
+        ex = self.extractor
+        dev = ex.device
+        if isinstance(ex, XFeatExtractor):
+            out = extract_fn(ex.model, image_ops.to_float_image(gray, dev),
+                             ex.nfeatures, ex.compute_dtype)
+            out = {k: v[0] for k, v in out.items()}
+        else:
+            out = {k: torch.from_numpy(v[0]).to(dev)
+                   for k, v in ex(gray).items()}
+        out["kpts_un"] = camera_ops.undistort_points(
+            self.cam, out["kpts"][None])[0]
+        return out
+
     @torch.no_grad()
     def build_rgbd(self, gray: np.ndarray, depth_raw: np.ndarray,
                    timestamp: float) -> Frame:
         """Extract, undistort and look up the gated depth on the
-        extractor's device; one host transfer."""
-        ex = self.extractor
-        dev = ex.device
-        out = extract_fn(ex.model, image_ops.to_float_image(gray, dev),
-                         ex.nfeatures, ex.compute_dtype)
-        kpts = out["kpts"][0]
-        kpts_un = camera_ops.undistort_points(self.cam, out["kpts"])[0]
-        valid = out["valid"][0]
-        depth_m = torch.from_numpy(self.depth_meters(depth_raw)).to(dev)
-        d, ur = track_step.keypoint_depth(depth_m, kpts, kpts_un, valid,
-                                          self.bf, DEPTH_EDGE_REL)
-        return self.assemble_rgbd(track_step.fetch(dict(
-            kpts=kpts, kpts_un=kpts_un, desc=out["desc"][0],
-            scores=out["scores"][0], valid=valid, depth=d, ur=ur)), timestamp)
+        extractor's device; one host transfer after the extraction."""
+        out = self._extract(gray)
+        depth_m = torch.from_numpy(self.depth_meters(depth_raw)).to(
+            out["kpts"].device)
+        out["depth"], out["ur"] = track_step.keypoint_depth(
+            depth_m, out["kpts"], out["kpts_un"], out["valid"], self.bf,
+            DEPTH_EDGE_REL)
+        return self.assemble_rgbd(track_step.fetch(out), timestamp)
 
     @torch.no_grad()
     def build_mono(self, gray: np.ndarray, timestamp: float) -> Frame:
         """Extract and undistort on the extractor's device; every keypoint
         a monocular observation (no depth, no right coordinate)."""
-        ex = self.extractor
-        out = extract_fn(ex.model, image_ops.to_float_image(gray, ex.device),
-                         ex.nfeatures, ex.compute_dtype)
-        kpts = out["kpts"][0]
+        out = self._extract(gray)
+        kpts = out["kpts"]
         K = kpts.shape[0]
-        return self.assemble_rgbd(track_step.fetch(dict(
-            kpts=kpts,
-            kpts_un=camera_ops.undistort_points(self.cam, out["kpts"])[0],
-            desc=out["desc"][0], scores=out["scores"][0],
-            valid=out["valid"][0],
-            depth=torch.zeros(K, dtype=torch.float32, device=ex.device),
-            ur=torch.full((K,), -1.0, dtype=torch.float32,
-                          device=ex.device))), timestamp)
+        out["depth"] = torch.zeros(K, dtype=torch.float32, device=kpts.device)
+        out["ur"] = torch.full((K,), -1.0, dtype=torch.float32,
+                               device=kpts.device)
+        return self.assemble_rgbd(track_step.fetch(out), timestamp)
 
     def assemble_rgbd(self, out: dict, timestamp: float) -> Frame:
-        """A Frame from per-keypoint numpy arrays computed elsewhere (the
-        whole-frame step runs extraction, undistortion and the depth lookup
-        and hands back the finished arrays)."""
+        """A Frame from per-keypoint numpy arrays (the whole-frame step
+        runs extraction, undistortion and the depth lookup and hands back
+        the finished arrays); ORB's ``angle`` and ``octave`` when given."""
         f = Frame(
             fid=self._next_id,
             timestamp=timestamp,
@@ -138,6 +144,8 @@ class FramePipeline:
             valid=out["valid"],
             depth=out["depth"],
             ur=out["ur"],
+            angle=out.get("angle"),
+            octave=out.get("octave"),
         )
         self._next_id += 1
         return f

@@ -36,15 +36,20 @@ class LocalMapping:
     # same total budget as the (5,10) schedule)
     BA_BUDGET_ROUNDS = 2
     BA_ROUND_ITERS = 5
-    # the match threshold of triangulation and fusion: float descriptors
-    # need a looser absolute threshold than the reference's binary TH_LOW
-    MAX_DIST = matching.TH_LOW * 6
 
-    def __init__(self, slam_map, cam, bf: float, device):
+    def __init__(self, slam_map, cam, bf: float, device,
+                 profile: matching.MatchProfile = matching.XFEAT_PROFILE):
         self.map = slam_map
         self.cam = cam
         self.bf = bf
         self.device = torch.device(device)
+        self.profile = profile
+        # the match threshold of triangulation and fusion: float
+        # descriptors need a looser absolute threshold than the
+        # reference's; binary (ORB) takes its TH_LOW directly
+        self.tri_max_dist = (profile.th_low if profile.binary
+                             else profile.th_low * 6)
+        self.fuse_max_dist = self.tri_max_dist
         # mp -> kf id at creation, for the culling window
         self.recent_points: Dict[int, int] = {}
         self._ba_session = None
@@ -320,8 +325,8 @@ class LocalMapping:
             stack(lambda kf2, f2: f2, fill=False),
             stack(lambda kf2, f2: kf2.depth),
             self._t(nb_valid),
-            cam.fx, cam.fy, cam.cx, cam.cy, self.bf, self.MAX_DIST,
-            ratio=0.8,
+            cam.fx, cam.fy, cam.cx, cam.cy, self.bf, self.tri_max_dist,
+            ratio=0.8, binary=self.profile.binary,
         ))
         for j, (nkid, kf2, _f2) in enumerate(use):
             mask = matching.rotation_consistency_filter(
@@ -376,7 +381,8 @@ class LocalMapping:
             stack(lambda kf2: kf2.kpts_un), stack(lambda kf2: kf2.desc),
             stack(lambda kf2: kf2.valid, fill=False),
             cam.fx, cam.fy, cam.cx, cam.cy, radius=3.0,
-            max_dist=self.MAX_DIST, ratio=0.9,
+            max_dist=self.fuse_max_dist, ratio=0.9,
+            binary=self.profile.binary,
         )
         idx_all, mask_all = fetch((res.idx, res.mask))
         for j, (nkid, kf2) in enumerate(kf2s):

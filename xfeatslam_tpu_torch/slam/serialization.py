@@ -8,6 +8,14 @@ with a json header whose config checksum is computed from the same string
 as the JAX package's. So an atlas saved by either package loads in the
 other. Host numpy only.
 
+The pyramid state of an ORB map goes in keys of the port's own, which the
+JAX package's loader does not read: each keyframe's keypoint octaves
+(``kf{kid}_octave``) and the points' octave and scale band
+(``pts_octave``, ``pts_dmin``, ``pts_dmax``), without which a loaded
+8-level map would predict every point at octave 0. A file without them
+(the JAX package's) loads with zeros there, as the JAX package loads it;
+the atlas takes the maps' pyramid geometry from their headers.
+
 The keyframes' inertial preintegrations (``kf{kid}_pre``) wait for the
 inertial modes (ROADMAP item 15): a file that holds one raises on load,
 and a keyframe that carries one raises on save.
@@ -53,6 +61,7 @@ def save_map(m: SlamMap, f):
         kf_blobs[f"kf{kid}_ur"] = kf.ur
         kf_blobs[f"kf{kid}_depth"] = kf.depth
         kf_blobs[f"kf{kid}_angle"] = kf.angle
+        kf_blobs[f"kf{kid}_octave"] = kf.octave
         kf_blobs[f"kf{kid}_R"] = kf.R
         kf_blobs[f"kf{kid}_t"] = kf.t
         kf_blobs[f"kf{kid}_mp"] = kf.mp_ids
@@ -93,6 +102,9 @@ def save_map(m: SlamMap, f):
         pts_alive=m.points.alive[:n],
         pts_first=m.points.first_kf[:n],
         pts_angle=m.points.angle[:n],
+        pts_octave=m.points.octave[:n],
+        pts_dmin=m.points.dmin[:n],
+        pts_dmax=m.points.dmax[:n],
         obs=np.asarray(obs_flat, np.int64).reshape(-1, 3),
         **kf_blobs,
     )
@@ -122,6 +134,7 @@ def load_map(f) -> SlamMap:
             R=data[f"kf{kid}_R"],
             t=data[f"kf{kid}_t"],
             mp_ids=data[f"kf{kid}_mp"].copy(),
+            octave=data.get(f"kf{kid}_octave"),
         )
         kf.parent = int(meta[1])
         if len(meta) > 2:
@@ -155,6 +168,9 @@ def load_map(f) -> SlamMap:
     m.points.alive[:n] = data["pts_alive"]
     m.points.first_kf[:n] = data["pts_first"]
     m.points.angle[:n] = data["pts_angle"]
+    for name in ("octave", "dmin", "dmax"):
+        if f"pts_{name}" in data:
+            getattr(m.points, name)[:n] = data[f"pts_{name}"]
     m.points.free = [i for i in range(n) if not m.points.alive[i]]
     # observations and the graph links (Atlas::PostLoad)
     for (mp, kid, slot) in data["obs"]:
@@ -206,6 +222,10 @@ def load_atlas(path: str) -> Atlas:
         for mid in meta["map_ids"]:
             buf = io.BytesIO(z.read(f"map{mid}.npz"))
             atlas.maps[mid] = load_map(buf)
+        if atlas.maps:
+            # maps made after the load share the loaded maps' pyramid
+            m = atlas.maps[meta["map_ids"][0]]
+            atlas.scale_factor, atlas.n_levels = m.scale_factor, m.n_levels
         atlas.active_id = meta["active_id"]
         atlas._next_map_id = (max(meta["map_ids"]) + 1 if meta["map_ids"]
                               else 0)

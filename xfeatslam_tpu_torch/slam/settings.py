@@ -31,6 +31,13 @@ class Settings:
     th_depth: float = 3.0  # meters (Stereo.ThDepth * baseline)
     depth_map_factor: float = 5000.0
     n_features: int = 1000
+    # the ORB extractor's pyramid and FAST thresholds, read from the file
+    # as the JAX package does; System builds ORBExtractor(nfeatures=...)
+    # alone, as the JAX package's System does
+    scale_factor: float = 1.2
+    n_levels: int = 8
+    ini_th_fast: int = 20
+    min_th_fast: int = 7
     # depth beyond this never becomes a map point (System.thFarPoints)
     th_far_points: Optional[float] = None
     # inertial calibration: the inertial modes are not ported (item 15)
@@ -138,14 +145,18 @@ class Settings:
             s.th_depth = s.bf / fx * float(get("Stereo.ThDepth", "ThDepth",
                                                default=40.0))
 
-        # extractor (readORB, Settings.cc:443-452): the XFeat backend takes
-        # the feature count; the pyramid keys are required all the same
+        # extractor (readORB, Settings.cc:443-452)
         s.n_features = int(get("ORBextractor.nFeatures",
                                "Extractor.nFeatures", required=True,
                                default=1000))
-        for key in ("ORBextractor.scaleFactor", "ORBextractor.nLevels",
-                    "ORBextractor.iniThFAST", "ORBextractor.minThFAST"):
-            get(key, required=True)
+        s.scale_factor = float(get("ORBextractor.scaleFactor", required=True,
+                                   default=1.2))
+        s.n_levels = int(get("ORBextractor.nLevels", required=True,
+                             default=8))
+        s.ini_th_fast = int(get("ORBextractor.iniThFAST", required=True,
+                                default=20))
+        s.min_th_fast = int(get("ORBextractor.minThFAST", required=True,
+                                default=7))
 
         tfp = get("System.thFarPoints")
         s.th_far_points = float(tfp) if tfp is not None else None

@@ -10,10 +10,10 @@ frame.
 
 The device work runs on ``device``: CUDA unless the caller asks for the
 CPU, and without a GPU the default raises. Localization mode, the
-trajectory savers and the tracked-state getters are here. Not ported yet,
+trajectory savers and the tracked-state getters are here. The feature
+backend is XFeat or ORB (``backend="orb"`` or ``USE_ORB``). Not ported yet,
 each raising ``NotImplementedError`` with its ROADMAP item: the stereo and
-inertial sensors (items 14, 15), the ORB backend (item 13) and the viewer
-and map export (item 16).
+inertial sensors (items 14, 15) and the viewer and map export (item 16).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 
 from .. import resolve_device
 from ..models.extractor import XFeatExtractor
+from ..ops import matching
 from ..utils import io as io_utils
 from ..utils.timing import StageTimer
 from .atlas import Atlas
@@ -64,7 +65,8 @@ class System:
                  enable_loop_closing: bool = True,
                  viewer_dir: Optional[str] = None,
                  viewer_port: Optional[int] = None, device=None):
-        """backend: "xfeat" (the default; "orb" is not ported).
+        """backend: "xfeat" or "orb" (the reference's USE_ORB switch); None
+        reads the ``USE_ORB`` environment variable, as the JAX package does.
         enable_loop_closing (with mapping) builds LoopClosing, as in the
         JAX package. device: where the tensors live, CUDA unless given."""
         if sensor in _UNPORTED_SENSORS:
@@ -72,10 +74,8 @@ class System:
                 f"sensor {sensor.name}: {_UNPORTED_SENSORS[sensor]}")
         if backend is None:
             backend = "orb" if os.environ.get("USE_ORB") else "xfeat"
-        if backend != "xfeat":
-            raise NotImplementedError(
-                f"backend {backend!r}: the ORB backend waits for ROADMAP "
-                "item 13")
+        if backend not in ("xfeat", "orb"):
+            raise ValueError(f"backend {backend!r}: 'xfeat' or 'orb'")
         if viewer_dir is not None or viewer_port is not None:
             raise NotImplementedError("the viewer waits for ROADMAP item 16")
         self.device = resolve_device(device)
@@ -86,17 +86,34 @@ class System:
         self._last_big_change_idx = 0
         self.settings = settings
         self.sensor = sensor
-        self.extractor = XFeatExtractor(nfeatures=settings.n_features,
-                                        device=self.device)
-        # XFeat is single-scale
-        self.atlas = Atlas(desc_dim=64, n_levels=1)
+        if backend == "orb":
+            # the extractor's own pyramid defaults, as the JAX package's
+            # System builds it
+            from ..models.orb import ORBExtractor
+
+            self.extractor = ORBExtractor(nfeatures=settings.n_features,
+                                          device=self.device)
+            profile, desc_dim = matching.ORB_PROFILE, 256
+            n_levels = self.extractor.n_levels
+            scale_factor = self.extractor.scale_factor
+        else:
+            self.extractor = XFeatExtractor(nfeatures=settings.n_features,
+                                            device=self.device)
+            # XFeat is single-scale
+            profile, desc_dim, n_levels, scale_factor = (
+                matching.XFEAT_PROFILE, 64, 1, 1.2)
+        self.atlas = Atlas(desc_dim=desc_dim, scale_factor=scale_factor,
+                           n_levels=n_levels)
         self.map = self.atlas.active
         self.pipeline = FramePipeline(
             self.extractor, settings.cam, bf=settings.bf,
             depth_factor=settings.depth_map_factor,
         )
         cfg = TrackerConfig(fps=settings.fps, th_depth=settings.th_depth,
-                            th_far_points=settings.th_far_points)
+                            th_far_points=settings.th_far_points,
+                            binary=profile.binary, th_high=profile.th_high,
+                            th_low=profile.th_low, n_levels=n_levels,
+                            scale_factor=scale_factor)
         self.loop_closing = None
         if enable_loop_closing and enable_mapping:
             # the scale is observable with depth, not from one camera
@@ -118,7 +135,8 @@ class System:
         self.local_mapping = None
         if enable_mapping:
             self.local_mapping = LocalMapping(self.map, settings.cam,
-                                              settings.bf, self.device)
+                                              settings.bf, self.device,
+                                              profile=profile)
 
     def track_rgbd(self, gray: np.ndarray, depth_raw: np.ndarray,
                    timestamp: float, imu=None):

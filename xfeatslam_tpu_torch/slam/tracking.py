@@ -6,11 +6,13 @@ motion-model prediction, projection matching and the pose-only LM on the
 device, local-map tracking and the keyframe policy, with the host doing
 control flow and map bookkeeping in numpy.
 
-Every steady-state frame runs extraction and both tracking stages as one
-device call: on the card the frame step's CUDA graph
+Every steady-state XFeat frame runs extraction and both tracking stages
+as one device call: on the card the frame step's CUDA graph
 (``track_step.RgbdFrameStepGraph``), on the CPU the eager
 ``xfeat_rgbd_frame_step``; a monocular frame takes the same step without
-depth. Its outputs come back in one transfer.
+depth. Its outputs come back in one transfer. An ORB frame (binary
+descriptors, 8 octaves) is built first and then tracked by both stages in
+one call (``track_step.TwoStageTrackGraph`` on the card).
 
 A monocular map starts from two frames (``_initialize_mono``): windowed
 matches, the two-view H/F reconstruction (``optim/two_view``, its RANSAC
@@ -121,21 +123,34 @@ class TrackerConfig:
     scale_factor: float = 1.2
     # no new depth point within this many px of a local-map projection
     create_dedup_px: float = 2.0
+    # the matching profile (the USE_ORB switch): binary descriptors are
+    # compared by Hamming distance
+    binary: bool = False
     th_high: float = matching.TH_HIGH
     th_low: float = matching.TH_LOW
-    # reference-KF matching threshold: generous for float descriptors
-    refkf_max_dist: float = matching.TH_LOW * 7
+    # reference-KF matching threshold: generous for float descriptors, the
+    # raw TH_HIGH for ORB; None picks by the profile
+    refkf_max_dist: Optional[float] = None
     # relocalization acceptance: inliers after the guided widening ladder
     reloc_min_inliers: int = 50
+
+    def __post_init__(self):
+        if self.refkf_max_dist is None:
+            self.refkf_max_dist = (self.th_high if self.binary
+                                   else self.th_low * 7)
 
 
 class Tracking:
     def __init__(self, pipeline: FramePipeline, slam_map: SlamMap,
                  cam: camera_ops.Pinhole, config: TrackerConfig, atlas,
                  timer=None, retrieval=None, sensor: str = "rgbd"):
-        """sensor: "rgbd" or "mono". timer: an optional ``utils.timing.StageTimer`` that receives the
-        spans ``track.snapshot`` (the host's inputs of the frame step) and
-        ``track.frame_step`` (the step and its one host read). retrieval:
+        """sensor: "rgbd" or "mono". timer: an optional
+        ``utils.timing.StageTimer`` that receives the spans
+        ``track.extract`` (a frame built outside the frame step: ORB
+        frames, and XFeat's first), ``track.snapshot`` (the host's inputs
+        of the frame step or of the tracking stages) and
+        ``track.frame_step`` (the step or the stages, and their one host
+        read). retrieval:
         the keyframe database that relocalization queries (loop closing's;
         None without it, and candidates come from a brute-force cosine over
         the keyframes' global descriptors)."""
@@ -147,9 +162,15 @@ class Tracking:
         self.map = slam_map
         self.timer = timer
         self.device = pipeline.extractor.device
-        # the frame step's CUDA graph on the card; the eager step on the CPU
+        # on the card: the XFeat frame step's CUDA graph, and the two
+        # tracking stages' graph for frames built outside the step (ORB);
+        # the eager calls on the CPU
+        self._xfeat = hasattr(pipeline.extractor, "model")
+        on_card = self.device.type == "cuda"
         self._graph = (track_step.RgbdFrameStepGraph(pipeline.extractor.model)
-                       if self.device.type == "cuda" else None)
+                       if on_card and self._xfeat else None)
+        self._track_graph = (track_step.TwoStageTrackGraph(self.device)
+                             if on_card else None)
         self.last_kf_id: Optional[int] = None  # most recent created KF
         self.retrieval = retrieval
         self.atlas = atlas
@@ -197,7 +218,8 @@ class Tracking:
                 "IMU samples: the inertial modes wait for ROADMAP item 15")
         frame = self._grab_rgbd_fused(gray, depth_raw, timestamp)
         if frame is None:
-            frame = self.pipeline.build_rgbd(gray, depth_raw, timestamp)
+            with self._span("track.extract"):
+                frame = self.pipeline.build_rgbd(gray, depth_raw, timestamp)
         return self._track(frame)
 
     def grab_mono(self, gray, timestamp, imu=None):
@@ -208,17 +230,18 @@ class Tracking:
                 "IMU samples: the inertial modes wait for ROADMAP item 15")
         frame = self._grab_rgbd_fused(gray, None, timestamp)
         if frame is None:
-            frame = self.pipeline.build_mono(gray, timestamp)
+            with self._span("track.extract"):
+                frame = self.pipeline.build_mono(gray, timestamp)
         return self._track(frame)
 
     def _fused_grab_setup(self, timestamp):
-        """Preconditions and speculative inputs of the whole-frame step: OK
-        state, a monotonic timestamp; the motion-model pose prediction and
-        the stage-1 / stage-2 snapshots voted from the LAST frame's
-        bindings."""
+        """Preconditions and speculative inputs of the whole-frame step: the
+        XFeat backend (float descriptors), OK state, a monotonic timestamp;
+        the motion-model pose prediction and the stage-1 / stage-2
+        snapshots voted from the LAST frame's bindings."""
         last = self.last_frame
         if (self.state != State.OK or self.only_tracking or last is None
-                or last.R is None
+                or last.R is None or self.cfg.binary or not self._xfeat
                 or timestamp < last.timestamp):  # would start a new map
             return None
         ids = self._local_map_points(last)
@@ -444,7 +467,7 @@ class Tracking:
         res = matching.match_general(
             self._t(kf.desc), self._t(valid_kf), self._t(frame.desc),
             self._t(frame.valid), max_dist=self.cfg.refkf_max_dist,
-            ratio=0.75)
+            ratio=0.75, binary=self.cfg.binary)
         idx, mask = fetch((res.idx, res.mask))
         mask = matching.rotation_consistency_filter(
             kf.angle, frame.angle, np.clip(idx, 0, None), mask)
@@ -531,7 +554,7 @@ class Tracking:
             self._t(frame.kpts_un), self._t(frame.desc),
             self._t(frame.valid), radius=radius,
             max_dist=self.cfg.th_low * dist_scale, ratio=0.9,
-            kpt_free=self._t(frame.mp_ids < 0))
+            kpt_free=self._t(frame.mp_ids < 0), binary=self.cfg.binary)
         idx, mask = fetch((res.idx, res.mask))
         bound = False
         for i in np.nonzero(mask)[0]:
@@ -592,7 +615,9 @@ class Tracking:
             self._t(ref.kpts_un), self._t(ref.desc), self._t(ref.valid),
             self._t(frame.kpts_un), self._t(frame.desc),
             self._t(frame.valid), radius=100.0,
-            max_dist=self.cfg.th_low * 6, ratio=0.9))
+            max_dist=(self.cfg.th_low if self.cfg.binary
+                      else self.cfg.th_low * 6),
+            ratio=0.9, binary=self.cfg.binary))
         idx = res.idx
         mask = matching.rotation_consistency_filter(
             ref.angle, frame.angle, np.clip(idx, 0, None), res.mask)
@@ -792,8 +817,8 @@ class Tracking:
             t(prev_valid), self.cam, self.pipeline.bf, radius,
             self.cfg.th_high, 0.9, widen_below, self.cfg.scale_factor,
             2.0 * float(self.cam.cx), 2.0 * float(self.cam.cy),
-            scale_gate=scale_gate, band_gate=False, n_levels=self.cfg.n_levels,
-            widen=widen_below > 0,
+            binary=self.cfg.binary, scale_gate=scale_gate, band_gate=False,
+            n_levels=self.cfg.n_levels, widen=widen_below > 0,
         ))
         new = res.slot_mp >= 0
         if keep_existing:
@@ -808,15 +833,59 @@ class Tracking:
         return int(res.n_inliers)
 
     def _track_frame_fused(self, frame: Frame) -> Optional[bool]:
-        """Gate and apply the two-stage result the whole-frame grab
-        stashed on the frame (TrackWithMotionModel and TrackLocalMap in one
-        call). Returns True on success, None to fall back to the split
-        path, which re-derives everything."""
+        """TrackWithMotionModel and TrackLocalMap in one device call. The
+        whole-frame grab (XFeat) has already run both stages and stashed
+        the result on the frame; otherwise (ORB frames) both stages run
+        here on the built frame, by the ``TwoStageTrackGraph`` replay on the
+        card and the eager ``two_stage_track_step`` on the CPU, against the
+        local map voted from the LAST frame's bindings. Returns True on
+        success, None to fall back to the split path, which re-derives
+        everything."""
         pend = getattr(frame, "_fused_pending", None)
-        if pend is None:
+        if pend is not None:
+            frame._fused_pending = None
+            return self._apply_fused_two_stage(frame, *pend)
+        last = self.last_frame
+        if self.only_tracking or last is None or last.R is None:
             return None
-        frame._fused_pending = None
-        return self._apply_fused_two_stage(frame, *pend)
+        with self._span("track.snapshot"):
+            ids = self._local_map_points(last)
+            if ids is None or len(ids) == 0:
+                return None
+            self._predict_pose(frame)
+            pts = self.map.points
+            bound = (last.mp_ids >= 0) & last.inlier
+            safe1 = np.where(bound, last.mp_ids, 0)
+            valid1 = bound & pts.alive[safe1]
+            ids1 = np.where(valid1, last.mp_ids, -1)
+            pos, desc, valid2, padded_ids = self.map.point_snapshot(
+                ids, LOCAL_MP_BUCKET)
+            safe2 = np.clip(padded_ids, 0, None)
+            t = self._t
+            tensors = (
+                t(frame.R), t(frame.t), t(pts.pos[safe1]),
+                t(pts.desc[safe1]), t(valid1), t(pts.angle[safe1]),
+                t(last.octave.astype(np.int32)), t(ids1.astype(np.int32)),
+                t(pos), t(desc), t(valid2), t(pts.angle[safe2]),
+                t(pts.octave[safe2].astype(np.int32)),
+                t(padded_ids.astype(np.int32)), t(pts.dmax[safe2]),
+                t(frame.kpts_un), t(frame.desc), t(frame.valid),
+                t(frame.angle), t(frame.octave.astype(np.int32)),
+                t(frame.ur), t(self._inv_sigma2(frame)))
+        cfg = self.cfg
+        args = (self.cam, self.pipeline.bf, cfg.motion_radius,
+                cfg.local_radius, cfg.th_low if cfg.binary else cfg.th_high,
+                0.9, cfg.min_inliers_motion, cfg.scale_factor,
+                2.0 * float(self.cam.cx), 2.0 * float(self.cam.cy))
+        kw = dict(binary=cfg.binary, n_levels=cfg.n_levels)
+        with self._span("track.frame_step"):
+            if self._track_graph is not None:
+                res = self._track_graph(*tensors, *args, **kw)
+            else:
+                res = track_step.two_stage_track_step(*tensors, *args, **kw)
+            r1, r2 = fetch(res)
+        return self._apply_fused_two_stage(frame, r1, r2, ids, ids1,
+                                           padded_ids)
 
     def _apply_fused_two_stage(self, frame: Frame, r1, r2, ids, ids1,
                                padded_ids) -> Optional[bool]:
@@ -919,7 +988,7 @@ class Tracking:
         res = matching.match_general(
             self._t(kf.desc), self._t(valid_kf), self._t(frame.desc),
             self._t(frame.valid), max_dist=self.cfg.refkf_max_dist,
-            ratio=0.7)
+            ratio=0.7, binary=self.cfg.binary)
         idx, mask = fetch((res.idx, res.mask))
         mask = matching.rotation_consistency_filter(
             kf.angle, frame.angle, np.clip(idx, 0, None), mask)
