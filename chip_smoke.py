@@ -114,19 +114,45 @@ Phases, each fatal on failure:
      (level-0 candidates with their order and their quadtree selection
      equal, per-level keypoint Jaccard and descriptor bits at
      tests/test_torch_orb.py's bars), each stage's graph replay bit for
-     bit against its eager call, the stages' times and device events;
+     bit against its eager call; the two ORB kernels (``orb_fast``,
+     ``orb_describe``) against their plain twins on the frame's levels
+     and keypoints (level 0 exact: scores, survivors, angles, bits; the
+     other levels survivors by Jaccard >= 0.999, angles within 1e-4 rad,
+     >= 0.999 of the bits) and at odd shapes (a level narrower than a
+     tile, corners on the wrap seam, discs at the border), one launch of
+     each per extractor call, their times, the twins', the moment
+     convolutions' and the bounds; the stages' times and device events
+     beside those of the tensor-op stages before the kernels;
      ``System(backend="orb").track_rgbd`` at the JAX package's ORB bars (14
      frames, loop closing off: < 1 cm max, < 5 mm median; 40 frames, loop
      closing on, twice, counted: every frame OK, < 3 cm, >= 3 keyframes,
      the second run bit-identical to the first, pose_lm 2 per
      graph-tracked frame, local_ba 431 per round, no XFeat kernel); the
      readers phase's TUM directory through ``rgbd_tum --backend orb``
-     (within 1 cm) and ``mono_tum --backend orb`` (>= 1 keyframe).
+     (within 1 cm) and ``mono_tum --backend orb`` (>= 1 keyframe);
+ 14. XFeat stereo, counted: ``System(Sensor.STEREO).track_stereo`` on the
+     JAX package's 10 rendered pairs (640x480, K=1000, right view 8 cm
+     along +x) twice, at its test_xfeat_stereo_single_dispatch bars (>=
+     8 OK, < 8 cm, >= 6 pairs through ``StereoFrameStepGraph``), the runs
+     bit-identical; the step's graph records one detect_candidates, one
+     keypoint_desc and two pose_lm; the last step by replay bit for bit
+     against the eager step and held to the plain kernels; wall and spans;
+ 15. ORB stereo, counted: ``System(Sensor.STEREO, backend="orb")`` on 8
+     pairs twice at test_stereo_tracks' bars, the runs bit-identical, two
+     orb_fast and two orb_describe launches per pair;
+ 16. fisheye: ``build_stereo_fisheye`` on tests/test_fisheye.py's 512x512
+     KB8 rig (>= 100 keypoints with depth, median error < 5%); the XFeat
+     RGB-D System through a KB8 camera on 8 rendered 384x288 frames, counted
+     (every frame OK, < 5 cm, none through the pinhole frame step);
+ 17. rectification without cv2: the host ms of an EuRoC-style rig's
+     ``precompute_rectification`` and of ``rectify`` per 752x480 pair.
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
-``{"kernels": [...]}`` with each kernel's numbers (``pose_lm`` and
-``local_ba`` also with ``orb_launches``, their launches on the ORB SLAM
-path), and as its last line
+``{"kernels": [...]}`` with each kernel's numbers (``orb_launches``, the
+launches on the ORB RGB-D path, on ``pose_lm``, ``local_ba`` and the two
+ORB kernels, whose ``launches`` are the ORB stereo path's;
+``stereo_launches`` on the XFeat stereo path's kernels), and as its last
+line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is missing.
 """
@@ -172,6 +198,10 @@ KERNEL_SOURCES = {
                 "xfeatslam_tpu/optim/pose_opt.py:82 (XLA, not Pallas)"),
     "local_ba": ("xfeatslam_tpu_torch/csrc/local_ba.cu",
                  "xfeatslam_tpu/optim/local_ba.py:102 (XLA, not Pallas)"),
+    "orb_fast": ("xfeatslam_tpu_torch/csrc/orb_fast.cu",
+                 "xfeatslam_tpu/models/orb.py:93 (XLA, not Pallas)"),
+    "orb_describe": ("xfeatslam_tpu_torch/csrc/orb_describe.cu",
+                     "xfeatslam_tpu/models/orb.py:148 (XLA, not Pallas)"),
 }
 # a (5, 0) local-BA round must stay under this many kernel launches (it
 # was ~16,429 as tensor ops; the kernels make it 431)
@@ -239,7 +269,79 @@ READER_FRAMES = 12
 # tests/test_torch_orb.py, and the SLAM path's kernels
 ORB_FRAMES_SHORT, ORB_FRAMES_LONG, ORB_MIN_TRACKED = 14, 40, 30
 ORB_LEVEL_JACCARD = 0.95
-ORB_SLAM_KERNELS = {"pose_lm": None, "local_ba": None}
+ORB_SLAM_KERNELS = {"pose_lm": None, "local_ba": None, "orb_fast": None,
+                    "orb_describe": None}
+# the ORB stages by replay as tensor ops, before their kernels (PERF.md,
+# NVIDIA H100 80GB HBM3 at 700 W): candidates ms and device events,
+# describe ms and device events
+TENSOR_OPS_CANDIDATES, TENSOR_OPS_DESCRIBE = (4.9074, 1857), (3.8532, 435)
+# float ops of the ORB kernels, counted from the algorithm at its least:
+# orb_fast per pixel 16 differences and absolutes, then per threshold
+# p +- t, 32 compares, 16 adds, the two run-of-9 tests (~36), the select,
+# 8 suppression compares and the border (~99 each); orb_describe per
+# distinct keypoint position the 709-pixel disc (3 each), the 31 row
+# products and per bit two rotated points (4 products, 2 sums, 2 roundings,
+# 2 offsets, 4 clamps) and the compare and scale
+ORB_FAST_OPS_PER_PIXEL = 230
+ORB_DESCRIBE_OPS_PER_SLOT = 9800
+# the stereo phases: the JAX package's TestStereoSlam rig (the rendered
+# room, the right view 8 cm along +x) and frame counts, and its bars
+STEREO_BASELINE, STEREO_FRAMES, ORB_STEREO_FRAMES = 0.08, 10, 8
+STEREO_KERNELS = {"detect_candidates": None, "keypoint_desc": None,
+                  "pose_lm": None}
+ORB_STEREO_KERNELS = {"pose_lm": None, "orb_fast": None,
+                      "orb_describe": None}
+# tests/test_fisheye.py's rig: two KB8 cameras (EuRoC / TUM-VI-like),
+# camera 2 11 cm to the right with a 0.02 rad yaw, 512x512
+FISHEYE_KB1 = [190.98, 190.97, 254.93, 256.9, 0.0034823894, 0.0007150348,
+               -0.0020532361, 0.00020293673]
+FISHEYE_KB2 = [190.44, 190.44, 252.59, 254.65, 0.0034003171, 0.0007233193,
+               -0.0020532361, 0.00020293673]
+FISHEYE_HW = (512, 512)
+# tests/test_torch_slam_fisheye.py's camera: TUM-VI's KB8 distortion on a
+# 384x288 image, the System tracking through it over 8 rendered RGB-D
+# frames (the port's CPU run and the JAX System's both read 23.1 mm at
+# most against the truth: the optimizers project through fx, fy, cx, cy)
+FISHEYE_TRACK_KB8 = [230.0, 230.0, 191.5, 143.5, 0.0034823894,
+                     0.0007150348, -0.0020532361, 0.00020293673]
+FISHEYE_TRACK_HW, FISHEYE_TRACK_FRAMES = (288, 384), 8
+# tests/test_settings.py::TestStereoRectification's EuRoC-style rig
+EUROC_STEREO_YAML = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: 458.654
+Camera1.fy: 457.296
+Camera1.cx: 367.215
+Camera1.cy: 248.375
+Camera1.k1: -0.28340811
+Camera1.k2: 0.07395907
+Camera1.p1: 0.00019359
+Camera1.p2: 1.76187114e-05
+Camera2.fx: 457.587
+Camera2.fy: 456.134
+Camera2.cx: 379.999
+Camera2.cy: 255.238
+Camera2.k1: -0.28368365
+Camera2.k2: 0.07451284
+Camera2.p1: -0.00010473
+Camera2.p2: -3.55590700e-05
+Stereo.ThDepth: 35.0
+Stereo.T_c1_c2: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [1.0, 0.0, 0.0, 0.11, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0,
+         0.0, 0.0, 0.0, 1.0]
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20
+Camera.RGB: 1
+ORBextractor.nFeatures: 1200
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
 
 
 class SmokeFailure(Exception):
@@ -291,8 +393,10 @@ def graph_ms(fn, calls=20, replays=10):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    from xfeatslam_tpu_torch.optim.track_step import gc_paused
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -2118,16 +2222,209 @@ def _orb_keyed(o):
             for i, (p, oc) in enumerate(zip(lvl_xy, o["octave"][0][v]))}
 
 
-def orb_extractor_phase():
+def _mask_jaccard(a, b):
+    a, b = a.cpu().numpy() >= 0, b.cpu().numpy() >= 0
+    return float((a & b).sum() / max((a | b).sum(), 1))
+
+
+def orb_odd_shape_checks(ck, orb, dev):
+    """The two ORB kernels against their twins where their indexing is
+    hardest, on integer images (so exactly): a level narrower than one
+    32x16 tile, a corner on the wrap seam (a bright blob at x=1 whose
+    circle wraps to the right edge, one at the image's corner), and
+    keypoints whose radius-15 disc touches or leaves the image (at the
+    corners, 15 px from the borders, on the last row and column)."""
+    rng = np.random.default_rng(5)
+    narrow = rng.integers(0, 256, (40, 24)).astype(np.float32)
+    seam = np.full((64, 80), 40.0, np.float32)
+    for y, x in ((32, 1), (0, 0), (63, 79), (20, 78)):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                seam[(y + dy) % 64, (x + dx) % 80] = 220.0
+    tiny = rng.integers(0, 256, (5, 7)).astype(np.float32)
+    levels = [torch.from_numpy(a).to(dev) for a in (narrow, seam, tiny)]
+    sk, mk, ckn = ck.orb_fast(levels, 20.0, 7.0, 2)
+    sp, mp, cp = ck.orb_fast_plain(levels, 20.0, 7.0, 2)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(sk + mk, sp + mp))
+    seam_corners = int((mk[1][0] >= 0).sum())
+    print(f"orb_fast odd shapes (40x24 narrower than a tile, 64x80 with "
+          f"corners on the wrap seam, 5x7): scores and survivors equal to "
+          f"the plain twin {same}, counts {ckn.tolist()} (plain "
+          f"{cp.tolist()}); seam image corners at t0 "
+          f"{int((sk[1][0] > 0).sum())}, survivors {seam_corners}")
+    check(same and torch.equal(ckn, cp),
+          "orb_fast differs from its plain twin at odd shapes")
+    img = torch.from_numpy(rng.integers(0, 256, (64, 80)).astype(
+        np.float32)).to(dev)
+    kp = torch.tensor([[0.0, 0.0], [15.0, 15.0], [79.0, 63.0], [15.9, 40.2],
+                       [64.0, 15.0], [64.99, 48.99], [40.0, 0.0],
+                       [0.0, 32.5], [-3.0, 70.0]], device=dev)
+    va = torch.ones(kp.shape[0], dtype=torch.bool, device=dev)
+    va[-1] = False
+    pat = torch.from_numpy(orb._PATTERN.astype(np.float32)).to(dev)
+    (dk, ak), = ck.orb_describe([img], [orb.blur7(img)], [kp], [va], pat)
+    (dp, ap), = ck.orb_describe_plain([img], [orb.blur7(img)], [kp], [va],
+                                      pat)
+    torch.cuda.synchronize()
+    same = torch.equal(ak, ap) and torch.equal(dk, dp)
+    print(f"orb_describe odd keypoints (disc at the corners, 15 px from the "
+          f"border, on the last row and column, one invalid): angles and "
+          f"bits equal to the plain twin {same}; max angle gap "
+          f"{float((ak - ap).abs().max()):.3e}")
+    check(same, "orb_describe differs from its plain twin at odd keypoints")
+
+
+def orb_describe_work(orb, sizes, kp_d, angles, pattern):
+    """(bytes, distinct positions) that ``orb_describe`` must move on this
+    run's keypoints: per level the union of the in-level disc pixels over
+    the distinct integer keypoint positions (the padding slots share one)
+    and the union of the blurred samples that the rotated pattern reads,
+    4 bytes each; per slot its keypoint (8), flag (1), bits (1024) and
+    angle (4); the pattern once."""
+    mask, dxs, dys = orb._circle_mask(orb.PATCH_RADIUS)
+    on = mask > 0
+    dx = torch.as_tensor(dxs[on], device=pattern.device)
+    dy = torch.as_tensor(dys[on], device=pattern.device)
+    nbytes, n_pos = pattern.numel() * 4, 0
+    for (h, w), k, a in zip(sizes, kp_d, angles):
+        if k.shape[0] == 0:
+            continue
+        xi = k[:, 0].to(torch.int32).clamp(0, w - 1)
+        yi = k[:, 1].to(torch.int32).clamp(0, h - 1)
+        pos = torch.unique(yi.long() * w + xi.long())
+        px, py = pos % w, pos // w
+        gx, gy = px[:, None] + dx[None], py[:, None] + dy[None]
+        inside = (gx >= 0) & (gx < w) & (gy >= 0) & (gy < h)
+        disc = torch.unique((gy * w + gx)[inside]).numel()
+        ca, sa = torch.cos(a)[:, None], torch.sin(a)[:, None]
+        samples = []
+        for cx, cy in ((0, 1), (2, 3)):
+            qx, qy = pattern[None, :, cx], pattern[None, :, cy]
+            sx = (xi[:, None] + torch.round(ca * qx - sa * qy).to(
+                torch.int32)).clamp(0, w - 1)
+            sy = (yi[:, None] + torch.round(sa * qx + ca * qy).to(
+                torch.int32)).clamp(0, h - 1)
+            samples.append((sy.long() * w + sx.long()).reshape(-1))
+        blurred = torch.unique(torch.cat(samples)).numel()
+        nbytes += (disc + blurred) * 4 + k.shape[0] * (8 + 1 + 256 * 4 + 4)
+        n_pos += pos.numel()
+    return nbytes, n_pos
+
+
+def orb_kernel_checks(ck, orb, x_dev, sizes, kp_d, va_d):
+    """``csrc/orb_fast.cu`` and ``csrc/orb_describe.cu`` against their
+    plain twins on the card, on the levels of one 640x480 frame and the
+    extractor's keypoints: level 0 exact for both (scores, survivors and
+    counts; angles and bits); the other levels' survivors by Jaccard >=
+    0.999, angles within 1e-4 rad, >= 0.999 of the bits; then the odd
+    shapes; then each kernel's times (CUDA events, device by graph replay),
+    the twin's, the moment convolutions' (the library call for
+    orb_describe) and the bounds. Returns the two kernels' rows."""
+    dev = x_dev.device
+    levels = [orb._level_image(x_dev, lvl, h, w)
+              for lvl, (h, w) in enumerate(sizes)]
+    thr = (20.0, 7.0)
+    sk, mk, ckn = ck.orb_fast(levels, *thr, orb.EDGE)
+    sp, mp, cp = ck.orb_fast_plain(levels, *thr, orb.EDGE)
+    torch.cuda.synchronize()
+    l0 = torch.equal(sk[0], sp[0]) and torch.equal(mk[0], mp[0])
+    jac = [min(_mask_jaccard(a[t], b[t]) for t in range(2))
+           for a, b in zip(mk, mp)]
+    equal_levels = [lvl for lvl in range(len(sizes))
+                    if torch.equal(sk[lvl], sp[lvl])
+                    and torch.equal(mk[lvl], mp[lvl])]
+    fast_err = max(float((a - b).abs().max()) for a, b in zip(sk, sp))
+    print(f"orb_fast against its plain twin ({len(sizes)} levels, one "
+          f"launch): level 0 scores and survivors equal {l0}, levels equal "
+          f"bit for bit {equal_levels}, survivor Jaccard per level {jac}, "
+          f"max |score - plain| {fast_err:.3e}; counts {ckn.tolist()} "
+          f"(plain {cp.tolist()})")
+    check(l0 and int(ckn[0]) == int(cp[0]),
+          "orb_fast: level 0 differs from its plain twin")
+    check(min(jac) >= 0.999, "orb_fast: survivors part from the plain twin")
+    pat = orb._constant("pattern", dev, lambda: orb._PATTERN.astype(
+        np.float32))
+    blur = [orb.blur7(x) for x in levels]
+    dk = ck.orb_describe(levels, blur, kp_d, va_d, pat)
+    dp = ck.orb_describe_plain(levels, blur, kp_d, va_d, pat)
+    torch.cuda.synchronize()
+    gaps = [float((a[1] - b[1]).abs().max()) if a[1].numel() else 0.0
+            for a, b in zip(dk, dp)]
+    bits = [float((a[0] == b[0]).float().mean()) if a[0].numel() else 1.0
+            for a, b in zip(dk, dp)]
+    l0 = torch.equal(dk[0][1], dp[0][1]) and torch.equal(dk[0][0], dp[0][0])
+    print(f"orb_describe against its plain twin ({sum(k.shape[0] for k in kp_d)}"
+          f" keypoint slots, one launch): level 0 angles and bits equal {l0}; "
+          f"max angle gap per level {[f'{g:.3e}' for g in gaps]}, bits equal "
+          f"per level {bits}")
+    check(l0, "orb_describe: level 0 differs from its plain twin")
+    check(max(gaps) <= 1e-4 and min(bits) >= 0.999,
+          "orb_describe: angles or bits part from the plain twin")
+    orb_odd_shape_checks(ck, orb, dev)
+
+    fast = lambda: ck.orb_fast(levels, *thr, orb.EDGE)  # noqa: E731
+    desc = lambda: ck.orb_describe(levels, blur, kp_d, va_d, pat)  # noqa: E731
+    times = {
+        "orb_fast_ms": cuda_ms(fast),
+        "orb_fast_device_ms": graph_ms(fast),
+        "orb_fast_plain_ms": cuda_ms(
+            lambda: ck.orb_fast_plain(levels, *thr, orb.EDGE), iters=5,
+            warmup=1),
+        "orb_describe_ms": cuda_ms(desc),
+        "orb_describe_device_ms": graph_ms(desc),
+        "orb_describe_plain_ms": cuda_ms(
+            lambda: ck.orb_describe_plain(levels, blur, kp_d, va_d, pat),
+            iters=5, warmup=1),
+        # the two 31x31 moment convolutions per level, which compute the
+        # same moments at every pixel
+        "moment_convs_ms": cuda_ms(
+            lambda: [orb.orientation_maps(x) for x in levels], iters=5,
+            warmup=1),
+    }
+    npx = sum(h * w for h, w in sizes)
+    desc_bytes, n_pos = orb_describe_work(orb, sizes, kp_d,
+                                          [a[1] for a in dk], pat)
+    n_slots = sum(k.shape[0] for k in kp_d)
+    print(f"orb_describe's work on this frame: {n_slots} slots at {n_pos} "
+          f"distinct positions, {desc_bytes} bytes")
+    bounds = {
+        "orb_fast": bound_ms(npx * (4 + 16) + 4 * len(sizes),
+                             ORB_FAST_OPS_PER_PIXEL * npx),
+        "orb_describe": bound_ms(desc_bytes,
+                                 ORB_DESCRIBE_OPS_PER_SLOT * n_pos),
+    }
+    print("orb kernel timings (640x480, 1000 features; CUDA events, device "
+          "alone by graph replay): " + json.dumps(
+              {k: round(v, 5) for k, v in times.items()})
+          + f"; bounds {json.dumps(bounds)}")
+    return {
+        "orb_fast": {"max_abs_err": fast_err, "ms": times["orb_fast_ms"],
+                     "device_ms": times["orb_fast_device_ms"],
+                     "plain_ms": times["orb_fast_plain_ms"],
+                     "bound": bounds["orb_fast"], "library_ms": None},
+        "orb_describe": {"max_abs_err": max(gaps), "bits_equal": min(bits),
+                         "ms": times["orb_describe_ms"],
+                         "device_ms": times["orb_describe_device_ms"],
+                         "plain_ms": times["orb_describe_plain_ms"],
+                         "bound": bounds["orb_describe"],
+                         "library_ms": times["moment_convs_ms"]},
+    }
+
+
+def orb_extractor_phase(ck):
     """The ORB extractor on the card against the port's own CPU run of one
     rendered 640x480 frame (tests/test_torch_orb.py's bars: level-0
     candidates and their quadtree selection equal, per-level keypoint
     Jaccard >= ORB_LEVEL_JACCARD, >= 99% of the shared keypoints'
     descriptor bits; the resized levels' largest gap printed), each
     stage's graph replay against the eager call on the card bit for bit,
-    and the stages' times: candidates and describe by replay (CUDA
-    events, with the stage's device events, busy ms and costliest kernels
-    from ``torch.profiler``), the quadtree on the host, the whole call."""
+    the two kernels against their twins (``orb_kernel_checks``), one
+    launch of each per extractor call, and the stages' times: candidates
+    and describe by replay (CUDA events, with the stage's device events,
+    busy ms and costliest kernels from ``torch.profiler``, beside the
+    tensor-op stages' before the kernels), the quadtree on the host, the whole call. Returns
+    the timings and the kernels' rows."""
     from xfeatslam_tpu_torch import _build
     from xfeatslam_tpu_torch.models import orb
     from xfeatslam_tpu_torch.optim.track_step import fetch
@@ -2173,7 +2470,11 @@ def orb_extractor_phase():
     check(all(np.array_equal(a, b) for la, lb in zip(d_rep, d_eager)
               for a, b in zip(la, lb)),
           "orb: the descriptors' replay differs from the eager call")
-    out_c, out_r = card(img), cpu(img)
+    rows = orb_kernel_checks(ck, orb, x_dev, sizes, kp_d, va_d)
+    ck.reset_launch_counts()
+    out_c = card(img)
+    path_counts(ck, "ORBExtractor call", {"orb_fast": 1, "orb_describe": 1})
+    out_r = cpu(img)
     kc, kr = _orb_keyed(out_c), _orb_keyed(out_r)
     lvl_j = []
     for lvl in range(len(sizes)):
@@ -2243,7 +2544,14 @@ def orb_extractor_phase():
     print(f"orb extractor timings ({W}x{H}, K={K}; CUDA events, "
           "host wall for the quadtree and the whole call): "
           + json.dumps(report))
-    return report
+    print(f"orb stages by replay, kernels against the tensor ops before "
+          f"them: candidates {report['candidates_replay_ms']} ms in "
+          f"{ev_c} device events (tensor ops: {TENSOR_OPS_CANDIDATES[0]} ms, "
+          f"{TENSOR_OPS_CANDIDATES[1]} events); describe "
+          f"{report['describe_replay_ms']} ms in {ev_d} device events "
+          f"(tensor ops: {TENSOR_OPS_DESCRIBE[0]} ms, "
+          f"{TENSOR_OPS_DESCRIBE[1]} events)")
+    return report, rows
 
 
 def _orb_map_equal(a, b):
@@ -2355,9 +2663,13 @@ def orb_slam_phase(ck):
                      "p90": pct(spans["track"][2:], 90)},
         "backend_ms": {"median": pct(spans["backend"][2:], 50),
                        "p90": pct(spans["backend"][2:], 90)},
-        # inside track: the frame built (the extractor's two replays and
-        # the quadtree, undistortion, depth), the host's inputs of the
-        # tracking stages, their replay with its one read
+        # inside track: the frame built (track.frame_build), of it the
+        # extractor call (its two replays and the quadtree; the rest is
+        # undistortion, the depth gate and the frame's read), the host's
+        # inputs of the tracking stages, their replay with its one read
+        "track_frame_build_ms": {
+            "median": pct(spans["track.frame_build"][2:], 50),
+            "p90": pct(spans["track.frame_build"][2:], 90)},
         "track_extract_ms": {"median": pct(spans["track.extract"][2:], 50),
                              "p90": pct(spans["track.extract"][2:], 90)},
         "track_snapshot_ms": {"median": pct(spans["track.snapshot"][1:], 50),
@@ -2413,12 +2725,407 @@ def orb_readers_phase(root, cfg, seq):
 
 
 def orb_phase(ck, root, cfg, seq):
-    """The ORB backend: the extractor, RGB-D SLAM, the readers. Returns
-    the SLAM run's launch counts."""
-    orb_extractor_phase()
+    """The ORB backend: the extractor and its kernels, RGB-D SLAM, the
+    readers. Returns the SLAM run's launch counts and the kernels' rows."""
+    _, rows = orb_extractor_phase(ck)
     counts = orb_slam_phase(ck)
     orb_readers_phase(root, cfg, seq)
-    return counts
+    return counts, rows
+
+
+def stereo_sequence(n):
+    """The JAX package's stereo test rig (test_slam_integration.py
+    TestStereoSlam): ``n`` frames of the rendered room at 640x480 and each
+    frame's right view, rendered STEREO_BASELINE along the left camera's
+    +x (a rectified pair by construction)."""
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    seq = synthetic.make_sequence(n_frames=n)
+    scene = synthetic.RoomScene(seed=0)
+    shift = np.array([STEREO_BASELINE, 0, 0], np.float32)
+    seq["rights"] = [scene.render(seq["K"], R, (t - shift).astype(np.float32),
+                                  (H, W))[0] for (R, t) in seq["poses"][:n]]
+    return seq
+
+
+def stereo_settings(seq):
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.slam.settings import Settings
+
+    Km = seq["K"]
+    return Settings(
+        cam=Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2]]),
+        bf=STEREO_BASELINE * float(Km[0, 0]), th_depth=3.0,
+        depth_map_factor=1.0, n_features=K)
+
+
+class StepRecorder:
+    """Stands in for ``StereoFrameStepGraph`` and keeps its last call's
+    arguments."""
+
+    def __init__(self, graph):
+        self.graph, self.last = graph, None
+
+    def __call__(self, *args, **kwargs):
+        self.last = (args, kwargs)
+        return self.graph(*args, **kwargs)
+
+
+def _stereo_run(n, seq, backend, graphs_from=None, record=False):
+    """One ``System(Sensor.STEREO).track_stereo`` run (loop closing on, as
+    the JAX package's stereo tests) over ``n`` frames: states, the
+    camera-centre errors of the frames with a pose, poses, host wall per
+    frame. ``graphs_from``: an earlier System whose CUDA graphs (the stereo
+    frame step or the ORB extractor's stages, the tracking stages, local
+    BA) this run replays; ``record``: keep the stereo step's last inputs."""
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+
+    system = System(stereo_settings(seq), Sensor.STEREO, backend=backend)
+    tr = system.tracking
+    if graphs_from is not None:
+        prev = graphs_from.tracking
+        tr._stereo_graph = getattr(prev._stereo_graph, "graph",
+                                   prev._stereo_graph)
+        tr._track_graph = prev._track_graph
+        system.local_mapping._ba_graph = graphs_from.local_mapping._ba_graph
+        if backend == "orb":
+            system.extractor._graphs = graphs_from.extractor._graphs
+    if record:
+        tr._stereo_graph = StepRecorder(tr._stereo_graph)
+    calls0 = {g: g.calls for g in (getattr(tr._stereo_graph, "graph",
+                                           tr._stereo_graph), tr._track_graph)
+              if g is not None}
+    out = {"system": system, "states": [], "errs": [], "poses": [],
+           "walls": []}
+    for i in range(n):
+        tw = time.perf_counter()
+        state, pose = system.track_stereo(seq["images"][i], seq["rights"][i],
+                                          seq["timestamps"][i])
+        out["walls"].append(time.perf_counter() - tw)
+        out["states"].append(state.name)
+        out["poses"].append(None if pose is None
+                            else (pose[0].copy(), pose[1].copy()))
+        if pose is not None:
+            Rg, tg = seq["poses"][i]
+            out["errs"].append(float(np.linalg.norm(-pose[0].T @ pose[1]
+                                                    + Rg.T @ tg)))
+    out["graph_calls"] = {type(g).__name__: g.calls - c
+                          for g, c in calls0.items()}
+    out["errs"] = np.array(out["errs"])
+    return out
+
+
+def _same_poses(a, b):
+    return all((p is None and q is None) or (
+        p is not None and q is not None and np.array_equal(p[0], q[0])
+        and np.array_equal(p[1], q[1])) for p, q in zip(a, b))
+
+
+def _span_report(system, walls, first=2):
+    def pct(xs, q):
+        return round(float(np.percentile(np.asarray(xs) * 1e3, q)), 4)
+
+    spans = system.timer.samples
+    rep = {"wall_per_frame_ms": {"median": pct(walls[first:], 50),
+                                 "p90": pct(walls[first:], 90)}}
+    for name in ("track", "backend", "track.frame_build", "track.extract",
+                 "track.stereo_match", "track.snapshot", "track.frame_step"):
+        xs = spans.get(name, [])
+        xs = xs[first:] if name in ("track", "backend") else xs[1:]
+        if xs:
+            rep[name.replace(".", "_") + "_ms"] = {"median": pct(xs, 50),
+                                                    "p90": pct(xs, 90)}
+    return rep
+
+
+def stereo_phase(ck):
+    """XFeat stereo SLAM: ``System(Sensor.STEREO).track_stereo`` on the 10
+    frames of the JAX package's test_xfeat_stereo_single_dispatch at
+    640x480, K=1000, twice in one process (run 2 replays run 1's graphs),
+    each with the JAX test's bars (>= n - 2 frames OK, every pose within 8
+    cm, >= n - 4 frames through the stereo step by replay, > 50 keypoints
+    with depth on the last frame), the two runs bit-identical; the step's
+    graph records one detect_candidates, one keypoint_desc and two pose_lm,
+    and run 2's counts are that per replayed frame plus two of each
+    extraction kernel per pair built eagerly; the last frame's step by
+    replay bit-identical to the eager step and held to the step with the
+    plain kernels at the frame-step bars (R, t within 1e-4, slots and
+    inliers >= 0.99); run 2's wall per frame and spans. Returns run 2's
+    launch counts."""
+    from xfeatslam_tpu_torch.optim import track_step
+
+    n = STEREO_FRAMES
+    t0 = time.perf_counter()
+    seq = stereo_sequence(n)
+    print(f"stereo: {n} pairs rendered at {W}x{H} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    runs = []
+    for r in range(2):
+        ck.reset_launch_counts()
+        run = _stereo_run(n, seq, "xfeat",
+                          graphs_from=runs[0]["system"] if runs else None,
+                          record=not runs)
+        run["counts"] = path_counts(
+            ck, f"System(STEREO).track_stereo, {n} pairs, run {r + 1}",
+            STEREO_KERNELS, allowed=("local_ba",))
+        st = run["stats"] = run["system"].shutdown()
+        errs, states = run["errs"], run["states"]
+        tracked = run["graph_calls"]["StereoFrameStepGraph"]
+        print(f"stereo run {r + 1}: {states.count('OK')} of {n} OK, camera "
+              f"centre error max {errs.max() * 1e3:.3f} mm, median "
+              f"{np.median(errs) * 1e3:.3f} mm; {st['keyframes']} keyframes, "
+              f"{st['map_points']} map points; {st.get('fused_grab', 0)} "
+              f"pairs through the stereo step ({tracked} by this run's graph "
+              f"calls); launches {run['counts']}")
+        check(states.count("OK") >= n - 2, f"stereo run {r + 1}: {states}")
+        check(len(errs) and errs.max() < 0.08,
+              f"stereo run {r + 1}: a camera centre is >= 8 cm off")
+        check(st.get("fused_grab", 0) >= n - 4 and tracked >= n - 4,
+              f"stereo run {r + 1}: too few pairs through the stereo step")
+        f = run["system"].tracking.last_frame
+        check((f.depth > 0).sum() > 50,
+              f"stereo run {r + 1}: the last frame has too little depth")
+        runs.append(run)
+    a, b = runs
+    graph = a["system"].tracking._stereo_graph.graph
+    per_step = graph.captured_launches()
+    print(f"stereo: the step's graph records {per_step}; run 2 against run "
+          f"1: every pose bit-identical {_same_poses(a['poses'], b['poses'])}")
+    check(per_step == [{"detect_candidates": 1, "keypoint_desc": 1,
+                        "pose_lm": 2}],
+          "stereo: the step's graph does not launch detect and keypoint_desc "
+          "once and pose_lm twice")
+    check(_same_poses(a["poses"], b["poses"]),
+          "stereo: run 2 differs from run 1")
+    tracked = b["graph_calls"]["StereoFrameStepGraph"]
+    built = n - tracked
+    c = b["counts"]
+    check(c["detect_candidates"] == tracked + 2 * built
+          and c["keypoint_desc"] == tracked + 2 * built
+          and c["pose_lm"] >= 2 * tracked,
+          f"stereo run 2: launches {c} are not one detect and keypoint_desc "
+          f"and two pose_lm per replayed pair ({tracked}) and two extraction "
+          f"launches each per built pair ({built})")
+
+    args, kwargs = a["system"].tracking._stereo_graph.last
+    rep = track_step.fetch(graph(*args, **kwargs))
+    eager = track_step.fetch(track_step.xfeat_stereo_frame_step(
+        graph.model, *args, **kwargs))
+    same = all(np.array_equal(x, y) for x, y in zip(
+        _flat(rep), _flat(eager)))
+    with plain_kernels(ck):
+        plain = track_step.fetch(track_step.xfeat_stereo_frame_step(
+            graph.model, *args, **kwargs))
+    gaps = []
+    for rr, pr in zip(rep[1:], plain[1:]):
+        gaps.append((float(np.abs(rr.R - pr.R).max()),
+                     float(np.abs(rr.t - pr.t).max()),
+                     float((rr.slot_mp == pr.slot_mp).mean()),
+                     float((rr.inlier == pr.inlier).mean())))
+    print(f"stereo step (the last pair): replay against eager bit-identical "
+          f"{same}; against the plain kernels per stage (R gap, t gap, slots "
+          f"equal, inliers equal) {gaps}")
+    check(same, "stereo: the step's replay differs from the eager step")
+    check(all(g[0] <= 1e-4 and g[1] <= 1e-4 and g[2] >= 0.99 and g[3] >= 0.99
+              for g in gaps), "stereo: the step parts from the plain kernels")
+    report = _span_report(b["system"], b["walls"])
+    report["frame_0_ms"] = round(b["walls"][0] * 1e3, 4)
+    report["run_1_frame_1_capture_ms"] = round(a["walls"][1] * 1e3, 4)
+    print(f"stereo timings (host wall, run 2, {n} pairs at {W}x{H}, K={K}): "
+          + json.dumps(report))
+    return c
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _flat(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [v for x in tree for v in _flat(x)]
+    return [tree]
+
+
+def orb_stereo_phase(ck):
+    """ORB stereo SLAM: ``System(Sensor.STEREO, backend="orb")`` on the 8
+    frames of the JAX package's test_stereo_tracks at 640x480, twice in
+    one process (run 2 replays run 1's graphs), each with the JAX test's
+    bars (every state OK or NOT_INITIALIZED, >= 6 poses, every pose within
+    8 cm, > 100 keypoints with depth on the last frame, their median depth
+    error < 5% against the rendered depth), the two runs bit-identical;
+    run 2's orb_fast and orb_describe launches, two of each per pair (one
+    extractor call per view); run 2's spans. Returns run 2's counts."""
+    n = ORB_STEREO_FRAMES
+    seq = stereo_sequence(n)
+    runs = []
+    for r in range(2):
+        ck.reset_launch_counts()
+        run = _stereo_run(n, seq, "orb",
+                          graphs_from=runs[0]["system"] if runs else None)
+        run["counts"] = path_counts(
+            ck, f"System(STEREO, backend='orb').track_stereo, {n} pairs, "
+            f"run {r + 1}", ORB_STEREO_KERNELS, allowed=("local_ba",))
+        st = run["system"].shutdown()
+        errs, states = run["errs"], run["states"]
+        f = run["system"].tracking.last_frame
+        sel = f.valid & (f.depth > 0)
+        d_gt = seq["depths"][n - 1]
+        xi = np.clip(f.kpts[sel, 0].astype(int), 0, W - 1)
+        yi = np.clip(f.kpts[sel, 1].astype(int), 0, H - 1)
+        rel = float(np.median(np.abs(f.depth[sel] - d_gt[yi, xi])
+                              / d_gt[yi, xi]))
+        print(f"orb stereo run {r + 1}: states {states}; camera centre error "
+              f"max {errs.max() * 1e3:.3f} mm over {len(errs)} poses; "
+              f"{st['keyframes']} keyframes; last frame {int(sel.sum())} "
+              f"keypoints with depth, median depth error {rel:.4f}; launches "
+              f"{run['counts']}")
+        check(set(states) <= {"OK", "NOT_INITIALIZED"} and len(errs) >= 6
+              and errs.max() < 0.08,
+              f"orb stereo run {r + 1}: beyond the JAX package's bars")
+        check(sel.sum() > 100 and rel < 0.05,
+              f"orb stereo run {r + 1}: the last frame's depth is off")
+        runs.append(run)
+    a, b = runs
+    check(_same_poses(a["poses"], b["poses"]),
+          "orb stereo: run 2 differs from run 1")
+    c = b["counts"]
+    check(c["orb_fast"] == c["orb_describe"] == 2 * n,
+          f"orb stereo run 2: orb_fast {c['orb_fast']} and orb_describe "
+          f"{c['orb_describe']} launches, expected {2 * n} (two per pair)")
+    report = _span_report(b["system"], b["walls"])
+    print(f"orb stereo: run 2 bit-identical to run 1; timings (host wall, "
+          f"run 2, {n} pairs at {W}x{H}): " + json.dumps(report))
+    return c
+
+
+def fisheye_phase(ck):
+    """``FramePipeline.build_stereo_fisheye`` (ORB) on the rendered fisheye
+    rig of tests/test_fisheye.py (512x512, two KB8 cameras, 11 cm): >= 100
+    keypoints with depth, median depth error < 5% against the rendered
+    depth (the JAX test's bars), the two ORB kernels launched once per
+    view."""
+    from xfeatslam_tpu_torch.models.orb import ORBExtractor
+    from xfeatslam_tpu_torch.ops.camera import KannalaBrandt8, kb8_unproject
+    from xfeatslam_tpu_torch.slam.frame import FramePipeline
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    kb1 = KannalaBrandt8.from_list(FISHEYE_KB1)
+    kb2 = KannalaBrandt8.from_list(FISHEYE_KB2)
+    hw = FISHEYE_HW
+    yaw = 0.02
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                          [-np.sin(yaw), 0, np.cos(yaw)]], np.float32)
+    T[0, 3] = 0.11
+    T21 = np.linalg.inv(T)
+    u, v = np.meshgrid(np.arange(hw[1], dtype=np.float32),
+                       np.arange(hw[0], dtype=np.float32))
+    uv = torch.from_numpy(np.stack([u, v], -1).reshape(-1, 2))
+
+    def rays(cam):
+        return kb8_unproject(cam, uv).numpy().reshape(hw[0], hw[1], 3)
+
+    scene = synthetic.RoomScene(seed=3)
+    img1, dep1 = scene.render(None, np.eye(3, dtype=np.float32),
+                              np.zeros(3, np.float32), hw, rays_c=rays(kb1))
+    img2, _ = scene.render(None, T21[:3, :3].astype(np.float32),
+                           T21[:3, 3].astype(np.float32), hw,
+                           rays_c=rays(kb2))
+    pipe = FramePipeline(ORBExtractor(nfeatures=1000), kb1, bf=21.0,
+                         depth_factor=1.0)
+    lap = (0, hw[1] - 1)
+    pipe.build_stereo_fisheye(img1, img2, 0.0, kb2, T, lap, lap)  # warm-up
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    f = pipe.build_stereo_fisheye(img1, img2, 0.0, kb2, T, lap, lap)
+    ms = (time.perf_counter() - t0) * 1e3
+    path_counts(ck, "build_stereo_fisheye", {"orb_fast": 2,
+                                             "orb_describe": 2})
+    sel = f.valid & (f.depth > 0)
+    xi = np.clip(np.round(f.kpts[sel, 0]).astype(int), 0, hw[1] - 1)
+    yi = np.clip(np.round(f.kpts[sel, 1]).astype(int), 0, hw[0] - 1)
+    gt = dep1[yi, xi]
+    good = gt > 0
+    rel = float(np.median(np.abs(f.depth[sel][good] - gt[good]) / gt[good]))
+    print(f"fisheye: build_stereo_fisheye on the {hw[1]}x{hw[0]} KB8 rig: "
+          f"{int(sel.sum())} of {int(f.valid.sum())} keypoints with depth, "
+          f"median depth error {rel:.4f}; {ms:.3f} ms of host wall")
+    check(sel.sum() >= 100 and rel < 0.05,
+          "fisheye: beyond the JAX package's bars")
+
+    # the System through a KB8 camera (RGB-D, XFeat): frames keep their raw
+    # keypoints and are tracked the split way, never by the frame step
+    from xfeatslam_tpu_torch.slam.settings import Settings
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+
+    cam = KannalaBrandt8.from_list(FISHEYE_TRACK_KB8)
+    hw, n = FISHEYE_TRACK_HW, FISHEYE_TRACK_FRAMES
+    u, v = np.meshgrid(np.arange(hw[1], dtype=np.float32),
+                       np.arange(hw[0], dtype=np.float32))
+    r = kb8_unproject(cam, torch.from_numpy(
+        np.stack([u, v], -1).reshape(-1, 2))).numpy().reshape(hw[0], hw[1], 3)
+    r = r / r[..., 2:3]
+    scene = synthetic.RoomScene(seed=0)
+    poses = synthetic.orbit_trajectory(n, period=120, forward_per_frame=0.005)
+    frames = [scene.render(None, R, t, hw, rays_c=r) for R, t in poses]
+    system = System(Settings(cam=cam, camera_type="KannalaBrandt8", bf=24.0,
+                             th_depth=3.0, depth_map_factor=1.0,
+                             n_features=500, fps=30.0),
+                    Sensor.RGBD, enable_loop_closing=False)
+    ck.reset_launch_counts()
+    states, errs = [], []
+    for i, ((gray, depth), (Rg, tg)) in enumerate(zip(frames, poses)):
+        state, pose = system.track_rgbd(gray, depth, i / 30.0)
+        states.append(state.name)
+        errs.append(float(np.linalg.norm(-pose[0].T @ pose[1] + Rg.T @ tg)))
+    path_counts(ck, f"System(RGBD) through a KB8 camera, {n} frames",
+                {"detect_candidates": n, "keypoint_desc": n, "pose_lm": None},
+                allowed=("local_ba",))
+    st = system.shutdown()
+    print(f"fisheye System: {n} RGB-D frames at {hw[1]}x{hw[0]} through a "
+          f"KB8 camera: {states.count('OK')} OK, camera centre error max "
+          f"{max(errs) * 1e3:.3f} mm; {st['keyframes']} keyframes, "
+          f"{st.get('fused_grab', 0)} frames through the frame step")
+    check(states == ["OK"] * n and max(errs) < 0.05
+          and st.get("fused_grab", 0) == 0,
+          "fisheye System: a frame lost, > 5 cm off, or through the pinhole "
+          "frame step")
+
+
+def rectification_phase(root):
+    """An unrectified EuRoC-style pinhole rig (tests/test_settings.py's)
+    read by ``Settings.from_yaml`` without cv2: the
+    host ms of the read with ``precompute_rectification`` and of
+    ``rectify`` per 752x480 pair (medians of 3 and 5), the maps' shape and
+    range and the rectified camera."""
+    from xfeatslam_tpu_torch.slam.settings import Settings
+
+    path = os.path.join(root, "euroc_stereo.yaml")
+    with open(path, "w") as f:
+        f.write(EUROC_STEREO_YAML)
+    reads = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        s = Settings.from_yaml(path, sensor="STEREO")
+        reads.append((time.perf_counter() - t0) * 1e3)
+    rng = np.random.default_rng(0)
+    left = rng.integers(0, 256, (480, 752), np.uint8)
+    right = rng.integers(0, 256, (480, 752), np.uint8)
+    pairs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        out = s.rectify(left, right)
+        pairs.append((time.perf_counter() - t0) * 1e3)
+    M1l = s.rect_maps[0]
+    print(f"rectification (host, numpy, no cv2: {'cv2' in sys.modules}): "
+          f"from_yaml with precompute_rectification median "
+          f"{np.median(reads):.3f} ms, rectify per 752x480 pair median "
+          f"{np.median(pairs):.3f} ms; rectified fx {s.cam.fx:.6f} cx "
+          f"{s.cam.cx:.6f} cy {s.cam.cy:.6f} bf {s.bf:.6f}; map x in "
+          f"[{M1l.min():.3f}, {M1l.max():.3f}]")
+    check("cv2" not in sys.modules, "rectification: cv2 was imported")
+    check(all(m.shape == (480, 752) and np.isfinite(m).all()
+              for m in s.rect_maps) and all(
+                  o.shape == (480, 752) and o.dtype == np.uint8 for o in out),
+          "rectification: maps or images of the wrong shape")
 
 
 def run(batch: int, root: str):
@@ -2696,12 +3403,36 @@ def run(batch: int, root: str):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
 
-    # ---- the ORB backend: extractor, RGB-D SLAM, readers ----
-    orb_launches = orb_phase(ck, root, reader_cfg, reader_seq)
-    # the two kernels' launches on the ORB SLAM path (its second run)
+    # ---- the ORB backend: extractor and its kernels, RGB-D SLAM, readers ----
+    orb_launches, orb_rows = orb_phase(ck, root, reader_cfg, reader_seq)
+
+    # ---- stereo: XFeat, ORB, the fisheye rig, rectification ----
+    stereo_launches = stereo_phase(ck)
+    orb_stereo_launches = orb_stereo_phase(ck)
+    fisheye_phase(ck)
+    rectification_phase(root)
+
+    # the ORB kernels: launches on the ORB stereo path (its second run)
+    for name in ("orb_fast", "orb_describe"):
+        src, rep = KERNEL_SOURCES[name]
+        r = orb_rows[name]
+        b_ms, b_by = r["bound"]
+        rows_out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": orb_stereo_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r["library_ms"],
+        })
+    # the kernels' launches on the ORB RGB-D path (its second run) and on
+    # the XFeat stereo path (its second run)
     for row in rows_out:
         if row["name"] in ORB_SLAM_KERNELS:
             row["orb_launches"] = orb_launches[row["name"]]
+        if row["name"] in stereo_launches and row["name"] in (
+                "detect_candidates", "keypoint_desc", "pose_lm", "local_ba"):
+            row["stereo_launches"] = stereo_launches[row["name"]]
     print(json.dumps({"kernels": rows_out}))
 
 

@@ -297,4 +297,6 @@ def test_cpu_calls_launch_no_kernel(rng):
                                   "mutual_nn_pairs": 0,
                                   "similarity_top2": 0,
                                   "pose_lm": 0,
-                                  "local_ba": 0}
+                                  "local_ba": 0,
+                                  "orb_fast": 0,
+                                  "orb_describe": 0}

@@ -258,10 +258,10 @@ def test_settings_from_yaml_required_parameters(tmp_path):
 
 
 @pytest.mark.parametrize("name,sensor,item", [
-    ("tum_vi_mono", None, "14"),
+    ("tum1_rgbd", "IMU_RGBD", "15"),
     ("euroc_mono_inertial", None, "15"),
     ("euroc_mono", "IMU_MONOCULAR", "15"),
-    ("euroc_mono", "STEREO", "14"),
+    ("euroc_mono", "IMU_STEREO", "15"),
 ])
 def test_settings_from_yaml_unported_sections_raise(name, sensor, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

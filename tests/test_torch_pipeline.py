@@ -125,7 +125,7 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch.optim import two_view\n"
         "from xfeatslam_tpu_torch.parallel import batched\n"
         "from xfeatslam_tpu_torch.utils import synthetic, io, timing, verbose\n"
-        "from xfeatslam_tpu_torch.utils import opencv_yaml, png\n"
+        "from xfeatslam_tpu_torch.utils import opencv_yaml, png, rectification\n"
         "from xfeatslam_tpu_torch.slam import (atlas, frame, local_mapping,\n"
         "    loop_closing, map, retrieval, serialization, settings, system,\n"
         "    tracking)\n"
@@ -140,7 +140,8 @@ def test_port_and_smoke_script_import_no_jax():
         "    np.array([1, 2], np.float32), 1, (0, 0, 4, 4))\n"
         "assert sel.tolist() == [1], sel\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xfeatslam_tpu')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'xfeatslam_tpu',\n"
+        "                              'cv2')]\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -179,7 +179,7 @@ def test_use_orb_selects_orb(monkeypatch):
     assert s.local_mapping.tri_max_dist == 600.0
     with pytest.raises(ValueError, match="backend"):
         tsys.System(settings, tsys.Sensor.RGBD, backend="sift", device="cpu")
-    for sensor, item in ((tsys.Sensor.STEREO, "14"),
+    for sensor, item in ((tsys.Sensor.IMU_STEREO, "15"),
                          (tsys.Sensor.IMU_RGBD, "15")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tsys.System(settings, sensor, backend="orb", device="cpu")

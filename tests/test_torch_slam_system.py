@@ -155,12 +155,13 @@ def _settings():
 @pytest.mark.parametrize("kwargs,item", [
     # the monocular sensor is ported; its inertial samples are not
     (dict(sensor=tsys.Sensor.MONOCULAR, imu_samples=True), "15"),
-    (dict(sensor=tsys.Sensor.STEREO), "14"),
+    (dict(sensor=tsys.Sensor.STEREO, imu_samples=True), "15"),
     (dict(sensor=tsys.Sensor.IMU_MONOCULAR), "15"),
     (dict(sensor=tsys.Sensor.IMU_STEREO), "15"),
     (dict(sensor=tsys.Sensor.IMU_RGBD), "15"),
-    # the ORB backend is ported; its stereo sensor is not
-    (dict(backend="orb", sensor=tsys.Sensor.STEREO), "14"),
+    # the ORB backend and the stereo sensor are ported; stereo's inertial
+    # samples are not
+    (dict(backend="orb", sensor=tsys.Sensor.STEREO, imu_samples=True), "15"),
     # loop closing is ported; its inertial branch (the 4-DoF essential
     # graph of an IMU-initialized map) is not
     (dict(enable_loop_closing=True, imu_initialized=True), "15"),
@@ -174,7 +175,10 @@ def test_unported_configurations_raise(kwargs, item):
     imu_samples = kw.pop("imu_samples", False)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         system = tsys.System(_settings(), sensor, **kw)
-        if imu_samples:
+        if imu_samples and sensor == tsys.Sensor.STEREO:
+            system.track_stereo(np.zeros(HW, np.uint8), np.zeros(HW, np.uint8),
+                                0.0, imu=[(np.zeros(3), np.zeros(3), 0.0)])
+        elif imu_samples:
             system.track_monocular(np.zeros(HW, np.uint8), 0.0,
                                    imu=[(np.zeros(3), np.zeros(3), 0.0)])
         if inertial:
@@ -200,18 +204,18 @@ def test_unported_paths_raise(runs, tmp_path):
         tser.save_map(m, str(tmp_path / "m.npz"))
     with pytest.raises(NotImplementedError, match="item 16"):
         ts.export_map_html(str(tmp_path / "map.html"))
-    # the readers are ported; a fisheye config is not
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tset.Settings.from_yaml("examples/configs/tum_vi_mono.yaml")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tset.Settings(camera_type="KannalaBrandt8")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _settings().rectify(None, None)
+    # the readers and the fisheye settings are ported (tracking through a
+    # fisheye camera: tests/test_torch_slam_fisheye.py)
+    fisheye = tset.Settings.from_yaml("examples/configs/tum_vi_mono.yaml")
+    assert fisheye.camera_type == "KannalaBrandt8"
+    assert tset.Settings(camera_type="KannalaBrandt8").cam is None
+    img = np.zeros(HW, np.uint8)
+    assert _settings().rectify(img, img)[0] is img
     with pytest.raises(NotImplementedError, match="item 15"):
         runs["port_sys"].tracking.grab_rgbd(
             np.zeros(HW, np.uint8), np.zeros(HW, np.float32), 99.0,
             imu=[(np.zeros(3), np.zeros(3), 98.9)])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(FileNotFoundError):
         mono_tum_vi.main(["examples/configs/tum_vi_mono.yaml", "seq"])
 
 

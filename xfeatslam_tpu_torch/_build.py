@@ -24,7 +24,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 KERNELS = ("detect_candidates", "desc_sample", "mnn_pairs", "pose_lm",
-           "local_ba")
+           "local_ba", "orb_fast", "orb_describe")
 # the host libraries' (csrc/<name>.cpp) g++ flags
 _HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
@@ -32,9 +32,13 @@ _BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 # detect_candidates and desc_sample must not contract their position and
 # weight arithmetic into FMAs: that moves floor() decisions and
-# quantization steps (see the files).
+# quantization steps (see the files); orb_describe's rotated pattern must
+# round as the plain version's separate products and sums do, and
+# orb_fast's scores keep the plain version's bits.
 _EXTRA_FLAGS = {"detect_candidates": ["--fmad=false"],
-                "desc_sample": ["--fmad=false"]}
+                "desc_sample": ["--fmad=false"],
+                "orb_fast": ["--fmad=false"],
+                "orb_describe": ["--fmad=false"]}
 
 _loaded: dict = {}
 _lock = threading.Lock()

@@ -9,21 +9,28 @@ are (256,) float 0/1 vectors, so the matchers' squared L2 is the Hamming
 distance.
 
 Two device stages per frame, as in the JAX package, with one host read
-between them: ``orb_candidates`` (every level resized, FAST-scored at both
-thresholds, suppressed, border-masked and top-k'd with sub-pixel offsets)
-and, after the quadtree has picked each level's keypoints on the host,
-``orb_describe_all`` (orientation and descriptors at those keypoints). On
-the card each stage is one CUDA graph (``track_step.CapturedCalls``),
-keyed on the image size, the level sizes, caps, pads and both thresholds.
+between them: ``orb_candidates`` (every level resized, then one launch of
+the ``orb_fast`` kernel for FAST at both thresholds, suppression and the
+border on all levels, then the threshold select, the top-k and sub-pixel
+offsets) and, after the quadtree has picked each level's keypoints on the
+host, ``orb_describe_all`` (each level resized and blurred, then one
+launch of the ``orb_describe`` kernel for the moments at the keypoints,
+the angles and the descriptors). The kernels are ``csrc/orb_fast.cu`` and
+``csrc/orb_describe.cu`` behind ``ops/cuda_kernels``; CPU tensors take
+their plain twins (``orb_fast_plain``, ``orb_describe_plain`` there),
+built from the functions below. On the card each stage
+is one CUDA graph (``track_step.CapturedCalls``), keyed on the image
+size, the level sizes, caps, pads and both thresholds.
 
-FAST vectorizes over the level: the 16 circle pixels are one stacked
-(16, H, W) tensor of slices of a circularly padded image (the JAX
-package's ``jnp.roll`` wraps around), and the run-of-9 test packs the 16
-comparisons into an int, doubles it to 32 bits and ANDs nine shifts. The
-top-k keeps ``lax.top_k``'s order (lower index first among equal scores)
-through a unique int64 key, since the candidate order decides the
-quadtree's ties. The quadtree is ``csrc/quadtree.cpp``, built by g++ at
-first use; a failed build raises.
+FAST's plain version vectorizes over the level: the 16 circle pixels are
+one stacked (16, H, W) tensor of slices of a circularly padded image (the
+JAX package's ``jnp.roll`` wraps around), the score is summed in circle
+order (as the kernel does, so both give the same bits), and the run-of-9
+test packs the 16 comparisons into an int, doubles it to 32 bits and ANDs
+nine shifts. The top-k keeps ``lax.top_k``'s order (lower index first
+among equal scores) through a unique int64 key, since the candidate order
+decides the quadtree's ties. The quadtree is ``csrc/quadtree.cpp``, built
+by g++ at first use; a failed build raises.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build, resolve_device
+from ..ops import cuda_kernels as ck
 from ..ops import image as image_ops
 
 N_LEVELS = 8
@@ -88,7 +96,7 @@ _PATTERN = _load_pattern()
 _CONSTANTS: dict = {}
 
 
-def _constant(name: str, device, make):
+def _constant(name, device, make):
     key = (name, str(device))
     t = _CONSTANTS.get(key)
     if t is None:
@@ -130,8 +138,8 @@ def fast_score_maps(img, thresholds):
 
     img: (H,W) float32 in [0,255]. Returns (T,H,W) score maps (0 = not a
     corner): the sum of |p - circle_i| over the pixels brighter or darker
-    than p by more than the threshold. Circle pixels wrap around the image
-    (``jnp.roll`` in the JAX package)."""
+    than p by more than the threshold, summed in circle order. Circle
+    pixels wrap around the image (``jnp.roll`` in the JAX package)."""
     H, W = img.shape
     pad = F.pad(img[None, None], (3, 3, 3, 3), mode="circular")[0, 0]
     q = torch.stack([pad[3 + int(dy):3 + int(dy) + H,
@@ -141,7 +149,10 @@ def fast_score_maps(img, thresholds):
     brighter = torch.stack([q > img + float(t) for t in thresholds])
     darker = torch.stack([q < img - float(t) for t in thresholds])
     corner = _has_run9(brighter) | _has_run9(darker)
-    score = torch.where(brighter | darker, diff, 0.0).sum(1)
+    terms = torch.where(brighter | darker, diff, 0.0)
+    score = terms[:, 0]
+    for i in range(1, 16):
+        score = score + terms[:, i]
     return torch.where(corner, score, 0.0)
 
 
@@ -248,7 +259,8 @@ def orb_candidates(img0, sizes, caps, mins, ini_thr: float, min_thr: float):
     FAST-scored at both thresholds, suppressed and border-masked; the
     minimum threshold's map replaces the initial one where fewer than
     ``mins[lvl]`` corners fire (a device select). The top ``caps[lvl]``
-    candidates get a 1-D quadratic sub-pixel offset on the response.
+    candidates get a 1-D quadratic sub-pixel offset on the response, all
+    levels' candidates in one pass.
 
     Args:
       img0: (H0,W0) float32 level-0 image.
@@ -256,56 +268,73 @@ def orb_candidates(img0, sizes, caps, mins, ini_thr: float, min_thr: float):
         count below which the minimum threshold is used.
     Returns a list of (xy (cap,2) sub-pixel level coords, score (cap,),
     valid (cap,)) per level."""
-    outs = []
+    levels = [_level_image(img0, lvl, h, w)
+              for lvl, (h, w) in enumerate(sizes)]
+    # both thresholds at once: [0] initial, [1] minimum
+    scores, masked, counts = ck.orb_fast(levels, ini_thr, min_thr, EDGE)
+    sel_scores, tops, idxs = [], [], []
+    for lvl in range(len(sizes)):
+        use_min = counts[lvl] < mins[lvl]
+        sel_scores.append(torch.where(use_min, scores[lvl][1],
+                                      scores[lvl][0]).reshape(-1))
+        flat = torch.where(use_min, masked[lvl][1], masked[lvl][0])
+        top, idx = _top_k_first_index(flat.reshape(-1), caps[lvl])
+        tops.append(top)
+        idxs.append(idx)
+    # the sub-pixel step of every level's candidates at once: each
+    # candidate's level width, height and offset into the levels' scores
     dev = img0.device
-    for lvl, (h, w) in enumerate(sizes):
-        x = _level_image(img0, lvl, h, w)
-        # both thresholds at once: [0] initial, [1] minimum
-        s = fast_score_maps(x, (ini_thr, min_thr))
-        yy = torch.arange(h, device=dev)[:, None]
-        xx = torch.arange(w, device=dev)[None, :]
-        inb = (yy >= EDGE) & (yy < h - EDGE) & (xx >= EDGE) & (xx < w - EDGE)
-        m = nms3_mask(s) & inb
-        use_min = m[0].sum(dtype=torch.int32) < mins[lvl]
-        score = torch.where(use_min, s[1], s[0])
-        mask = torch.where(use_min, m[1], m[0])
-        top, idx = _top_k_first_index(
-            torch.where(mask, score, -1.0).reshape(-1), caps[lvl])
-        xs = idx % w
-        ys = idx // w
-        sf = score.reshape(-1)
+    w, h, base = (_constant(("candidate_" + name, sizes, caps), dev, make)
+                  for name, make in _candidate_tables(sizes, caps).items())
+    sf = torch.cat(sel_scores)
+    top = torch.cat(tops)
+    idx = torch.cat(idxs)
+    xs = idx % w
+    ys = idx // w
 
-        def at(dy, dx):
-            return sf[(ys + dy).clamp(0, h - 1) * w
-                      + (xs + dx).clamp(0, w - 1)]
+    def at(dy, dx):
+        return sf[base + (ys + dy).clamp(min=0).minimum(h - 1) * w
+                  + (xs + dx).clamp(min=0).minimum(w - 1)]
 
-        num_x = at(0, 1) - at(0, -1)
-        den_x = 2.0 * (2.0 * top - at(0, 1) - at(0, -1))
-        num_y = at(1, 0) - at(-1, 0)
-        den_y = 2.0 * (2.0 * top - at(1, 0) - at(-1, 0))
-        off_x = torch.where(den_x.abs() > 1e-6,
-                            num_x / torch.where(den_x == 0, 1.0, den_x),
-                            0.0).clamp(-0.5, 0.5)
-        off_y = torch.where(den_y.abs() > 1e-6,
-                            num_y / torch.where(den_y == 0, 1.0, den_y),
-                            0.0).clamp(-0.5, 0.5)
-        xy = torch.stack([xs.to(torch.float32) + off_x,
-                          ys.to(torch.float32) + off_y], -1)
-        outs.append((xy, top, top > 0.0))
-    return outs
+    num_x = at(0, 1) - at(0, -1)
+    den_x = 2.0 * (2.0 * top - at(0, 1) - at(0, -1))
+    num_y = at(1, 0) - at(-1, 0)
+    den_y = 2.0 * (2.0 * top - at(1, 0) - at(-1, 0))
+    off_x = torch.where(den_x.abs() > 1e-6,
+                        num_x / torch.where(den_x == 0, 1.0, den_x),
+                        0.0).clamp(-0.5, 0.5)
+    off_y = torch.where(den_y.abs() > 1e-6,
+                        num_y / torch.where(den_y == 0, 1.0, den_y),
+                        0.0).clamp(-0.5, 0.5)
+    xy = torch.stack([xs.to(torch.float32) + off_x,
+                      ys.to(torch.float32) + off_y], -1)
+    return [(a, b, b > 0.0) for a, b in zip(xy.split(caps), top.split(caps))]
+
+
+def _candidate_tables(sizes, caps):
+    """Per candidate slot of the concatenated levels (caps[l] slots for
+    level l): the level's width, height and its scores' offset, as makers
+    of int64 arrays."""
+    def per_slot(values):
+        return lambda: np.repeat(np.asarray(values, np.int64), caps)
+
+    offsets = np.cumsum([0] + [h * w for h, w in sizes[:-1]])
+    return {"w": per_slot([w for _, w in sizes]),
+            "h": per_slot([h for h, _ in sizes]),
+            "base": per_slot(offsets)}
 
 
 def orb_describe_all(img0, sizes, kpts_list, valid_list):
     """Oriented BRIEF for every level with no host read: each level
-    resized again (cheaper than keeping the images), blurred, its moments
-    and the descriptor gathers. Returns (desc, angle) per level."""
-    outs = []
-    for lvl, (h, w) in enumerate(sizes):
-        x = _level_image(img0, lvl, h, w)
-        m10, m01 = orientation_maps(x)
-        outs.append(describe(blur7(x), m10, m01, kpts_list[lvl],
-                             valid_list[lvl]))
-    return outs
+    resized again (cheaper than keeping the images) and blurred, then the
+    ``orb_describe`` kernel's one launch for the moments at the keypoints,
+    the angles and the bits. Returns (desc, angle) per level."""
+    levels = [_level_image(img0, lvl, h, w)
+              for lvl, (h, w) in enumerate(sizes)]
+    pat = _constant("pattern", img0.device,
+                    lambda: _PATTERN.astype(np.float32))
+    return ck.orb_describe(levels, [blur7(x) for x in levels],
+                           list(kpts_list), list(valid_list), pat)
 
 
 def distribute_quadtree(kpts: np.ndarray, scores: np.ndarray, n_target: int,

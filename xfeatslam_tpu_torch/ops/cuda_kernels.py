@@ -23,6 +23,14 @@ Kernels:
                         code in the JAX package, not Pallas: a BA solve
                         in ~85 launches per LM iteration in place of
                         ~3,300)
+  orb_fast              csrc/orb_fast.cu           (models/orb.py:93-131, XLA
+                        code in the JAX package: FAST at both thresholds,
+                        suppression and the border of every level in one
+                        launch)
+  orb_describe          csrc/orb_describe.cu       (models/orb.py:148-204, XLA
+                        code in the JAX package: moments at the keypoints,
+                        angle and rotated BRIEF of every level in one
+                        launch)
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ _ENTRY_POINTS = {
     "local_ba": ("local_ba", [_P] * 22 + [_I] * 10 + [_F] * 5 + [_P, _P]),
     # host only; returns a count, not an error code
     "local_ba_scratch_floats": ("local_ba", [_I] * 6, ctypes.c_longlong),
+    "orb_fast": ("orb_fast", [_P] * 5 + [_I, _P, _F, _F, _I, _P]),
+    "orb_describe": ("orb_describe", [_P] * 9 + [_I, _P, _P]),
 }
 _entries: dict = {}
 
@@ -751,8 +761,160 @@ def local_ba(prob, cam: Pinhole, bf: float = 0.0, stage_iters=(5, 10),
 local_ba.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# 7. orb_fast: FAST-9 at two thresholds, suppression, border, every level
+
+ORB_MAX_LEVELS = 8
+
+
+def _pointers(tensors):
+    """A host array of the tensors' device pointers (kept alive by the
+    caller until the launch returns)."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*(int(v) for v in values))
+
+
+def orb_fast_plain(levels, ini_thr: float, min_thr: float, edge: int):
+    """Plain version: ``models/orb.fast_score_maps`` (the circle as one
+    stacked tensor, its sum in circle order), ``nms3_mask`` and the border
+    mask, level by level."""
+    from ..models import orb  # orb imports this module
+
+    scores, masked, counts = [], [], []
+    for x in levels:
+        h, w = x.shape
+        s = orb.fast_score_maps(x, (ini_thr, min_thr))
+        yy = torch.arange(h, device=x.device)[:, None]
+        xx = torch.arange(w, device=x.device)[None, :]
+        inb = (yy >= edge) & (yy < h - edge) & (xx >= edge) & (xx < w - edge)
+        m = orb.nms3_mask(s) & inb
+        scores.append(s)
+        masked.append(torch.where(m, s, -1.0))
+        counts.append(m[0].sum(dtype=torch.int32))
+    return scores, masked, torch.stack(counts)
+
+
+def orb_fast(levels, ini_thr: float, min_thr: float, edge: int):
+    """FAST-9 corner scores at the initial and the minimum threshold, their
+    3x3 local maxima above 0 inside the border, for every pyramid level,
+    in one launch.
+
+    Args:
+      levels: 1..8 level images, each (h, w) float32 in [0, 255]; circle
+        pixels wrap around the image (the JAX package's ``jnp.roll``), the
+        suppression window does not.
+      ini_thr, min_thr: the two FAST thresholds; edge: the border width.
+    Returns (scores, masked, counts): per level the (2, h, w) score maps
+    ([0] the initial, [1] the minimum threshold; 0 off corners), the same
+    maps with -1 off the survivors, and (L,) int32 survivors at the
+    initial threshold per level."""
+    if not _on_cuda(*levels):
+        return orb_fast_plain(levels, ini_thr, min_thr, edge)
+    L = len(levels)
+    if not 1 <= L <= ORB_MAX_LEVELS:
+        raise ValueError(f"orb_fast: 1 to {ORB_MAX_LEVELS} levels, got {L}")
+    for i, x in enumerate(levels):
+        if x.dim() != 2 or min(x.shape) < 1:
+            raise ValueError(f"orb_fast: level {i} must be a non-empty (h, w) "
+                             f"image, got {tuple(x.shape)}")
+        _check(x, f"levels[{i}]", torch.float32, x.shape)
+    dev = levels[0].device
+    sizes = [tuple(x.shape) for x in levels]
+    buf = torch.empty(sum(4 * h * w for h, w in sizes), dtype=torch.float32,
+                      device=dev)
+    scores, masked, at = [], [], 0
+    for h, w in sizes:
+        scores.append(buf[at:at + 2 * h * w].view(2, h, w))
+        masked.append(buf[at + 2 * h * w:at + 4 * h * w].view(2, h, w))
+        at += 4 * h * w
+    counts = torch.zeros(L, dtype=torch.int32, device=dev)
+    img_p, score_p, masked_p = (_pointers(t) for t in (levels, scores, masked))
+    hs, ws = _ints([h for h, _ in sizes]), _ints([w for _, w in sizes])
+    _launch("orb_fast", levels[0].get_device(), ctypes.addressof(img_p),
+            ctypes.addressof(score_p), ctypes.addressof(masked_p),
+            ctypes.addressof(hs), ctypes.addressof(ws), L, _ptr(counts),
+            float(ini_thr), float(min_thr), int(edge))
+    orb_fast.launches += 1
+    return scores, masked, counts
+
+
+orb_fast.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 8. orb_describe: moments at the keypoints, angle and rotated BRIEF
+
+
+def orb_describe_plain(levels, blurred, kpts, valid, pattern):
+    """Plain version: ``models/orb.orientation_maps`` (two 31x31
+    convolutions over the level) and ``describe`` (the gathers), level by
+    level."""
+    from ..models import orb  # orb imports this module
+
+    outs = []
+    for x, b, k, v in zip(levels, blurred, kpts, valid):
+        m10, m01 = orb.orientation_maps(x)
+        outs.append(orb.describe(b, m10, m01, k, v))
+    return outs
+
+
+def orb_describe(levels, blurred, kpts, valid, pattern):
+    """Oriented BRIEF at the keypoints of every pyramid level in one launch:
+    the intensity-centroid moments on the radius-15 disc at each keypoint's
+    integer position (zero outside the level), the angle, and the 256
+    rotated pattern pairs read from the blurred level.
+
+    Args:
+      levels, blurred: per level (h, w) float32, the level image and its
+        7x7 Gaussian blur.
+      kpts: per level (n, 2) float32 (x, y) level coordinates; valid: per
+        level (n,) bool.
+      pattern: (256, 4) float32 sampling pairs (x1, y1, x2, y2).
+    Returns per level (desc (n, 256) float32 0/1 times valid, angle (n,)
+    radians)."""
+    if not _on_cuda(*levels, *blurred, *kpts, *valid, pattern):
+        return orb_describe_plain(levels, blurred, kpts, valid, pattern)
+    L = len(levels)
+    if not 1 <= L <= ORB_MAX_LEVELS or not (
+            len(blurred) == len(kpts) == len(valid) == L):
+        raise ValueError(f"orb_describe: 1 to {ORB_MAX_LEVELS} levels, each "
+                         "with its blur, keypoints and flags")
+    _check(pattern, "pattern", torch.float32, (256, 4))
+    dev = levels[0].device
+    descs, angles = [], []
+    for i, (x, b, k, v) in enumerate(zip(levels, blurred, kpts, valid)):
+        if x.dim() != 2 or min(x.shape) < 1:
+            raise ValueError(f"orb_describe: level {i} must be a non-empty "
+                             f"(h, w) image, got {tuple(x.shape)}")
+        n = k.shape[0]
+        _check(x, f"levels[{i}]", torch.float32, x.shape)
+        _check(b, f"blurred[{i}]", torch.float32, x.shape)
+        _check(k, f"kpts[{i}]", torch.float32, (n, 2))
+        _check(v, f"valid[{i}]", torch.bool, (n,))
+        descs.append(torch.empty((n, 256), dtype=torch.float32, device=dev))
+        angles.append(torch.empty(n, dtype=torch.float32, device=dev))
+    ptrs = [_pointers(t) for t in (levels, blurred, kpts, valid, descs,
+                                   angles)]
+    hs, ws, ns = (_ints(v) for v in ([x.shape[0] for x in levels],
+                                     [x.shape[1] for x in levels],
+                                     [k.shape[0] for k in kpts]))
+    _launch("orb_describe", levels[0].get_device(),
+            *(ctypes.addressof(p) for p in ptrs), ctypes.addressof(hs),
+            ctypes.addressof(ws), ctypes.addressof(ns), L, _ptr(pattern))
+    if sum(k.shape[0] for k in kpts):
+        orb_describe.launches += 1
+    return list(zip(descs, angles))
+
+
+orb_describe.launches = 0
+
+
 _WRAPPERS = (detect_candidates, bilinear_desc_sample, keypoint_desc,
-             mutual_nn_pairs, similarity_top2, pose_lm, local_ba)
+             mutual_nn_pairs, similarity_top2, pose_lm, local_ba, orb_fast,
+             orb_describe)
 
 
 def launch_counts() -> dict:

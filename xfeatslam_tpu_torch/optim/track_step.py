@@ -10,8 +10,9 @@ device and never reads a device value on the host: both widen passes are
 computed and selected with ``torch.where``, as the JAX graph does, and
 scalar settings are Python numbers. The caller fetches the result once
 (``fetch``). On the card the whole frame step is captured as one CUDA
-graph and replayed (``RgbdFrameStepGraph``); a frame built outside the
-step (ORB) replays both tracking stages as one graph
+graph and replayed (``RgbdFrameStepGraph``; ``StereoFrameStepGraph`` for a
+rectified stereo pair, ``xfeat_stereo_frame_step``); a frame built
+outside the step (ORB) replays both tracking stages as one graph
 (``TwoStageTrackGraph``).
 
 Two configurations cover the two tracking stages:
@@ -23,6 +24,8 @@ Two configurations cover the two tracking stages:
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import time
 from typing import NamedTuple
@@ -290,6 +293,82 @@ def xfeat_rgbd_frame_step(
     return frame_out, r1, r2
 
 
+def stereo_depth(kpt_uv_l, desc_l, valid_l, octave_l, kpt_uv_r, desc_r,
+                 valid_r, octave_r, bf, min_disp, max_disp, max_dist,
+                 binary: bool):
+    """Depth and virtual right u of the left keypoints of a rectified pair
+    (ComputeStereoMatches): ``matching.stereo_match_rows`` (row band, same
+    octave, disparity in [min_disp, max_disp], distance <= max_dist,
+    deduplicated), depth bf / disparity where the match holds and the
+    disparity exceeds min_disp, ur = u - disparity there. Returns (d, ur),
+    d = 0 and ur = -1 elsewhere."""
+    res, disp = matching.stereo_match_rows(
+        kpt_uv_l, desc_l, valid_l, octave_l, kpt_uv_r, desc_r, valid_r,
+        octave_r, min_disp=min_disp, max_disp=max_disp, max_dist=max_dist,
+        binary=binary)
+    d = torch.where(res.mask & (disp > min_disp), bf / disp.clamp(min=1e-6),
+                    0.0)
+    ur = torch.where(d > 0, kpt_uv_l[:, 0] - disp, -1.0)
+    return d, ur
+
+
+@torch.no_grad()
+def xfeat_stereo_frame_step(
+        model, images, R0, t0,
+        # stage 1: motion-model candidates (last frame's bindings, M1 rows)
+        pos1, desc1, valid1, angle1, octave1, ids1,
+        # stage 2: local-map snapshot (M2 rows)
+        pos2, desc2, valid2, angle2, octave2, ids2, dmax2,
+        cam: Pinhole, bf, min_disp, max_disp, stereo_max_dist, inv_sigma2_0,
+        radius1, radius2, max_dist, ratio, widen_below, scale_factor,
+        img_w, img_h, num_keypoints: int, n_levels: int = 1):
+    """The whole steady-state rectified-stereo XFeat frame: both views
+    extracted as one batch of 2 (one detect and one descriptor launch for
+    the pair), undistortion, row-band stereo matching, disparity to depth
+    and virtual right u (``stereo_depth``), and both tracking stages, with
+    no host sync.
+
+    images: (2,H,W,C) float in [0,1], the left view at 0 and the right at
+    1. Returns (frame dict of the left view's kpts, kpts_un, desc, scores,
+    valid, depth, ur; stage-1 TrackStepResult; stage-2 TrackStepResult)."""
+    out = extract_fn(model, images, num_keypoints)
+    kpts_un = camera_ops.undistort_points(cam, out["kpts"])
+    kl_un, dl, vl = kpts_un[0], out["desc"][0], out["valid"][0]
+    K = kl_un.shape[0]
+    dev = kl_un.device
+    oct0 = torch.zeros(K, dtype=torch.int32, device=dev)
+    d, ur = stereo_depth(kl_un, dl, vl, oct0, kpts_un[1], out["desc"][1],
+                         out["valid"][1], oct0, bf, min_disp, max_disp,
+                         stereo_max_dist, binary=False)
+    zeros_k = torch.zeros(K, dtype=torch.float32, device=dev)
+    r1, r2 = two_stage_track_step(
+        R0, t0, pos1, desc1, valid1, angle1, octave1, ids1,
+        pos2, desc2, valid2, angle2, octave2, ids2, dmax2,
+        kl_un, dl, vl, zeros_k, oct0, ur, zeros_k + inv_sigma2_0, cam, bf,
+        radius1, radius2, max_dist, ratio, widen_below, scale_factor,
+        img_w, img_h, binary=False, n_levels=n_levels)
+    frame_out = {"kpts": out["kpts"][0], "kpts_un": kl_un, "desc": dl,
+                 "scores": out["scores"][0], "valid": vl, "depth": d,
+                 "ur": ur}
+    return frame_out, r1, r2
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Collect garbage, then keep Python's cyclic collector off until the
+    block ends. Around a CUDA-graph capture: a collection during the
+    capture can free another graph, whose reset is not permitted while a
+    stream captures and invalidates the capture."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple    # static input buffers, in the call's tensor order
@@ -360,7 +439,7 @@ class CapturedCalls:
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = ck.launch_counts()
-        with torch.cuda.graph(graph):
+        with gc_paused(), torch.cuda.graph(graph):
             outputs = run(*inputs)
         # the capture recorded these launches without running them
         launches = {}
@@ -412,6 +491,44 @@ class RgbdFrameStepGraph(CapturedCalls):
                 self.model, *inputs, cam, *scalars,
                 num_keypoints=flags[0], n_levels=flags[1],
                 has_depth=flags[2])
+
+        return self.replay((tuple(float(c) for c in cam), scalars, flags),
+                           tensors, run)
+
+
+class StereoFrameStepGraph(CapturedCalls):
+    """``xfeat_stereo_frame_step`` captured and replayed
+    (``CapturedCalls``). The key holds, besides the tensor arguments'
+    shapes and dtypes, the camera's intrinsics and distortion, every Python
+    scalar (bf, min_disp, max_disp, stereo_max_dist, inv_sigma2_0, both
+    radii, max_dist, ratio, widen_below, scale_factor, img_w, img_h) and
+    the static flags (num_keypoints, n_levels). Returns (frame dict,
+    stage-1 result, stage-2 result), the graph's static outputs."""
+
+    def __init__(self, model):
+        super().__init__(next(model.parameters()).device,
+                         "xfeat_stereo_frame_step")
+        self.model = model
+
+    def __call__(self, images, R0, t0,
+                 pos1, desc1, valid1, angle1, octave1, ids1,
+                 pos2, desc2, valid2, angle2, octave2, ids2, dmax2,
+                 cam: Pinhole, bf, min_disp, max_disp, stereo_max_dist,
+                 inv_sigma2_0, radius1, radius2, max_dist, ratio,
+                 widen_below, scale_factor, img_w, img_h,
+                 num_keypoints: int, n_levels: int = 1):
+        tensors = (images, R0, t0, pos1, desc1, valid1, angle1, octave1,
+                   ids1, pos2, desc2, valid2, angle2, octave2, ids2, dmax2)
+        scalars = tuple(float(x) for x in (
+            bf, min_disp, max_disp, stereo_max_dist, inv_sigma2_0, radius1,
+            radius2, max_dist, ratio)) + (int(widen_below),) + tuple(
+                float(x) for x in (scale_factor, img_w, img_h))
+        flags = (int(num_keypoints), int(n_levels))
+
+        def run(*inputs):
+            return xfeat_stereo_frame_step(
+                self.model, *inputs, cam, *scalars,
+                num_keypoints=flags[0], n_levels=flags[1])
 
         return self.replay((tuple(float(c) for c in cam), scalars, flags),
                            tensors, run)

@@ -1,20 +1,28 @@
 """Typed settings of the SLAM system.
 
-The fields of ``xfeatslam_tpu/slam/settings.py``'s ``Settings`` that the
-monocular and RGB-D systems read, with a pinhole camera: built in code, or
-read from the reference's OpenCV-YAML files by ``from_yaml`` (through
-``utils/opencv_yaml``, without ``yaml`` or ``cv2``). Not ported yet, each
-raising ``NotImplementedError``: the KannalaBrandt8 camera, the stereo rig
-and its rectification (ROADMAP item 14) and the IMU section (item 15).
+Counterpart of ``xfeatslam_tpu/slam/settings.py``: built in code, or read
+from the reference's OpenCV-YAML files by ``from_yaml`` (through
+``utils/opencv_yaml``, without ``yaml`` or ``cv2``). Pinhole and
+KannalaBrandt8 cameras; the stereo rig (camera 2, ``Stereo.T_c1_c2`` or
+``Stereo.b``, the fisheye lapping columns); an unrectified pinhole rig's
+rectification maps by ``precompute_rectification`` and ``rectify``
+(``utils/rectification``, numpy in place of ``cv2``). Not ported yet: the
+IMU section and the inertial sensors (ROADMAP item 15), which raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
-from ..ops.camera import Pinhole
+import numpy as np
+
+from ..ops.camera import KannalaBrandt8, Pinhole
 from ..utils import opencv_yaml
+from ..utils import rectification
+
+_INERTIAL = ("IMU_MONOCULAR", "IMU_STEREO", "IMU_RGBD")
 
 
 class SettingsError(ValueError):
@@ -22,11 +30,43 @@ class SettingsError(ValueError):
     '<name> required parameter does not exist, aborting...' and exits)."""
 
 
+def _as_matrix(v, rows=4, cols=4) -> np.ndarray:
+    """An opencv-matrix node ({rows, cols, dt, data}) or a plain list, as
+    float32."""
+    if isinstance(v, dict):
+        return np.asarray(v["data"], np.float32).reshape(
+            int(v.get("rows", rows)), int(v.get("cols", cols)))
+    return np.asarray(v, np.float32).reshape(rows, cols)
+
+
+def _K64(cam) -> np.ndarray:
+    """The camera's intrinsic matrix from its float32 intrinsics, as the
+    JAX package hands ``cam.K`` to OpenCV."""
+    fx, fy, cx, cy = (float(np.float32(v)) for v in cam[:4])
+    return np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+
+
 @dataclass
 class Settings:
     camera_type: str = "PinHole"
-    cam: Optional[Pinhole] = None  # camera 1
+    cam: object = None  # camera 1, Pinhole or KannalaBrandt8 (rectified)
+    cam2: object = None  # camera 2 of a stereo rig
+    dist1: Optional[List[float]] = None  # pinhole distortion (4 or 5)
+    dist2: Optional[List[float]] = None
+    lapping1: Optional[Tuple[int, int]] = None  # KB8 overlapping columns
+    lapping2: Optional[Tuple[int, int]] = None
+    T_c1_c2: Optional[np.ndarray] = None  # (4,4) float32 stereo extrinsic
+    width: int = 640
+    height: int = 480
+    new_width: Optional[int] = None  # Camera.newWidth resize target
+    new_height: Optional[int] = None
+    need_resize: bool = False
+    need_rectify: bool = False
+    # the rectification maps (M1l, M2l, M1r, M2r), set by
+    # precompute_rectification for an unrectified pinhole rig
+    rect_maps: Optional[Tuple] = None
     fps: float = 30.0
+    baseline: float = 0.08
     bf: float = 40.0  # baseline x fx, for the virtual right coordinate
     th_depth: float = 3.0  # meters (Stereo.ThDepth * baseline)
     depth_map_factor: float = 5000.0
@@ -42,36 +82,40 @@ class Settings:
     th_far_points: Optional[float] = None
     # inertial calibration: the inertial modes are not ported (item 15)
     imu: object = None
+    raw: Dict = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.camera_type not in ("PinHole", "Rectified"):
-            raise NotImplementedError(
-                f"camera model {self.camera_type}: only pinhole cameras are "
-                "ported (KannalaBrandt8 waits for ROADMAP item 14)")
-        if self.cam is not None and not isinstance(self.cam, Pinhole):
-            raise NotImplementedError(
-                f"camera {type(self.cam).__name__}: only the port's Pinhole "
-                "is supported (KannalaBrandt8 waits for ROADMAP item 14)")
+        if self.camera_type not in ("PinHole", "Rectified", "KannalaBrandt8"):
+            raise SettingsError(
+                f"Error: camera model {self.camera_type} not known")
+        for c in (self.cam, self.cam2):
+            if c is not None and not isinstance(c, (Pinhole, KannalaBrandt8)):
+                raise TypeError(f"camera {type(c).__module__}."
+                                f"{type(c).__name__}: the port's Pinhole or "
+                                "KannalaBrandt8 is needed")
         if self.imu is not None:
             raise NotImplementedError(
                 "an IMU section: the inertial modes wait for ROADMAP item 15")
 
     @staticmethod
     def from_yaml(path: str, sensor=None) -> "Settings":
-        """Read a pinhole config, as the JAX package's ``from_yaml`` does
-        (its camera 1, image-size, RGB-D, extractor and system sections).
-        sensor: None (lenient) or MONOCULAR / RGBD (enum or string), which
-        turns on the reference's required-parameter errors for that
-        sensor's sections. A KannalaBrandt8 camera or a stereo sensor
-        raises naming item 14, an IMU section or inertial sensor item 15."""
+        """Read a config, as the JAX package's ``from_yaml`` does (camera
+        1, camera 2 and the stereo section, image size and resize, RGB-D,
+        extractor and system sections; an unrectified pinhole stereo rig's
+        rectification maps). sensor: None (lenient) or MONOCULAR / STEREO
+        / RGBD (enum or string), which turns on the reference's
+        required-parameter errors for that sensor's sections. An IMU
+        section or inertial sensor raises naming item 15."""
         d = opencv_yaml.load(path)
         if hasattr(sensor, "name"):
             sensor = sensor.name
-        strict = sensor is not None
-        rgbd = sensor in ("RGBD", "IMU_RGBD")
-        if sensor in ("STEREO", "IMU_STEREO"):
+        if sensor in _INERTIAL:
             raise NotImplementedError(
-                "stereo settings wait for ROADMAP item 14")
+                f"sensor {sensor}: the inertial modes wait for ROADMAP "
+                "item 15")
+        strict = sensor is not None
+        stereo = sensor == "STEREO"
+        rgbd = sensor == "RGBD"
 
         def get(*names, default=None, required=False):
             for n in names:
@@ -84,11 +128,6 @@ class Settings:
 
         # camera 1 (readCamera1, Settings.cc:184-275)
         cam_type = get("Camera.type", "Camera1.type", default="PinHole")
-        if cam_type == "KannalaBrandt8":
-            raise NotImplementedError(
-                "the KannalaBrandt8 camera waits for ROADMAP item 14")
-        if cam_type not in ("PinHole", "Rectified"):
-            raise SettingsError(f"Error: camera model {cam_type} not known")
         fx = float(get("Camera1.fx", "Camera.fx", required=True,
                        default=500.0))
         fy = float(get("Camera1.fy", "Camera.fy", required=True,
@@ -97,36 +136,108 @@ class Settings:
                        default=320.0))
         cy = float(get("Camera1.cy", "Camera.cy", required=True,
                        default=240.0))
-        dist = []
-        if cam_type == "PinHole" and get("Camera1.k1", "Camera.k1") is not None:
-            dist = [float(get("Camera1.k1", "Camera.k1", default=0.0))] + [
-                float(get(f"Camera1.{k}", f"Camera.{k}", required=True,
-                          default=0.0)) for k in ("k2", "p1", "p2")]
-            k3 = get("Camera1.k3", "Camera.k3")
-            if k3 is not None:
-                dist.append(float(k3))
-        params = [fx, fy, cx, cy] + dist
+        s = Settings(camera_type=cam_type, raw=d)
+        if cam_type in ("PinHole", "Rectified"):
+            if cam_type == "PinHole" and get("Camera1.k1",
+                                             "Camera.k1") is not None:
+                s.dist1 = [float(get("Camera1.k1", "Camera.k1",
+                                     default=0.0))] + [
+                    float(get(f"Camera1.{k}", f"Camera.{k}", required=True,
+                              default=0.0)) for k in ("k2", "p1", "p2")]
+                k3 = get("Camera1.k3", "Camera.k3")
+                if k3 is not None:
+                    s.dist1.append(float(k3))
+            s.cam = Pinhole.from_list([fx, fy, cx, cy] + (s.dist1 or []))
+        else:
+            ks = [float(get(f"Camera1.k{i}", f"Camera.k{i}", required=True,
+                            default=0.0)) for i in (1, 2, 3, 4)]
+            s.cam = KannalaBrandt8.from_list([fx, fy, cx, cy] + ks)
+            if stereo:
+                s.lapping1 = (
+                    int(get("Camera1.overlappingBegin", required=True,
+                            default=0)),
+                    int(get("Camera1.overlappingEnd", required=True,
+                            default=0)))
+
+        # camera 2 and the rig (readCamera2, Settings.cc:276-354)
+        if stereo:
+            s.need_rectify = cam_type == "PinHole"
+            if cam_type in ("PinHole", "KannalaBrandt8"):
+                fx2 = float(get("Camera2.fx", required=True, default=fx))
+                fy2 = float(get("Camera2.fy", required=True, default=fy))
+                cx2 = float(get("Camera2.cx", required=True, default=cx))
+                cy2 = float(get("Camera2.cy", required=True, default=cy))
+                if cam_type == "PinHole":
+                    if get("Camera2.k1") is not None:
+                        s.dist2 = [float(get("Camera2.k1", default=0.0))] + [
+                            float(get(f"Camera2.{k}", required=True,
+                                      default=0.0))
+                            for k in ("k2", "p1", "p2")]
+                        k3 = get("Camera2.k3")
+                        if k3 is not None:
+                            s.dist2.append(float(k3))
+                    s.cam2 = Pinhole.from_list([fx2, fy2, cx2, cy2]
+                                               + (s.dist2 or []))
+                else:
+                    # camera 2 reads Camera1.k* (Settings.cc:332-335), an
+                    # upstream quirk the JAX package keeps
+                    ks2 = [float(get(f"Camera1.k{i}", default=0.0))
+                           for i in (1, 2, 3, 4)]
+                    s.cam2 = KannalaBrandt8.from_list([fx2, fy2, cx2, cy2]
+                                                      + ks2)
+                    s.lapping2 = (
+                        int(get("Camera2.overlappingBegin", required=True,
+                                default=0)),
+                        int(get("Camera2.overlappingEnd", required=True,
+                                default=0)))
+            if cam_type == "Rectified":
+                s.baseline = float(get("Stereo.b", required=True,
+                                       default=0.08))
+            else:
+                T = get("Stereo.T_c1_c2", required=True)
+                if T is not None:
+                    s.T_c1_c2 = _as_matrix(T)
+                    s.baseline = float(np.linalg.norm(s.T_c1_c2[:3, 3]))
+            s.bf = s.baseline * fx
+            s.th_depth = s.bf / fx * float(get("Stereo.ThDepth",
+                                               required=True, default=40.0))
 
         # image size and resize (readImageInfo, Settings.cc:356-413): the
-        # calibration scales with the new size
-        width = int(get("Camera.width", "Camera1.width", required=True,
-                        default=640))
-        height = int(get("Camera.height", "Camera1.height", required=True,
-                         default=480))
-        new_h, new_w = get("Camera.newHeight"), get("Camera.newWidth")
-        if new_w is not None:
-            params[0] *= int(new_w) / width
-            params[2] *= int(new_w) / width
-        if new_h is not None:
-            params[1] *= int(new_h) / height
-            params[3] *= int(new_h) / height
-        s = Settings(camera_type=cam_type, cam=Pinhole.from_list(params))
+        # calibration scales with the new size unless the rig is rectified
+        s.width = int(get("Camera.width", "Camera1.width", required=True,
+                          default=640))
+        s.height = int(get("Camera.height", "Camera1.height", required=True,
+                           default=480))
+        sx = sy = 1.0
+        if get("Camera.newHeight") is not None:
+            s.new_height = int(get("Camera.newHeight"))
+            s.need_resize = True
+            sy = s.new_height / s.height
+        if get("Camera.newWidth") is not None:
+            s.new_width = int(get("Camera.newWidth"))
+            s.need_resize = True
+            sx = s.new_width / s.width
+        if s.need_resize and not s.need_rectify:
+            def scaled(cam):
+                p = cam.params_list()
+                p[0] *= sx
+                p[2] *= sx
+                p[1] *= sy
+                p[3] *= sy
+                return type(cam).from_list(p)
+
+            s.cam = scaled(s.cam)
+            if s.cam2 is not None:
+                s.cam2 = scaled(s.cam2)
+            if s.lapping1 is not None:
+                s.lapping1 = (int(s.lapping1[0] * sx), int(s.lapping1[1] * sx))
+            if s.lapping2 is not None:
+                s.lapping2 = (int(s.lapping2[0] * sx), int(s.lapping2[1] * sx))
         s.fps = float(get("Camera.fps", required=True, default=30.0))
         get("Camera.RGB", required=True)
 
         # IMU (readIMU, Settings.cc:414-433)
-        if get("IMU.NoiseGyro") is not None or sensor in (
-                "IMU_MONOCULAR", "IMU_RGBD"):
+        if get("IMU.NoiseGyro") is not None:
             raise NotImplementedError(
                 "an IMU section: the inertial modes wait for ROADMAP item 15")
 
@@ -137,10 +248,10 @@ class Settings:
                                            default=5000.0))
             th_depth_factor = float(get("Stereo.ThDepth", "ThDepth",
                                         required=rgbd, default=40.0))
-            baseline = float(get("Stereo.b", required=rgbd, default=0.08))
-            s.bf = baseline * float(s.cam.fx)
+            s.baseline = float(get("Stereo.b", required=rgbd, default=0.08))
+            s.bf = s.baseline * float(s.cam.fx)
             s.th_depth = s.bf / float(s.cam.fx) * th_depth_factor
-        elif get("Camera.bf") is not None:
+        elif not stereo and get("Camera.bf") is not None:
             s.bf = float(get("Camera.bf"))
             s.th_depth = s.bf / fx * float(get("Stereo.ThDepth", "ThDepth",
                                                default=40.0))
@@ -160,8 +271,38 @@ class Settings:
 
         tfp = get("System.thFarPoints")
         s.th_far_points = float(tfp) if tfp is not None else None
+        if s.need_rectify:
+            s.precompute_rectification()
         return s
 
-    def rectify(self, img_l, img_r):
-        raise NotImplementedError(
-            "stereo rectification waits for ROADMAP item 14")
+    def precompute_rectification(self):
+        """precomputeRectificationMaps (Settings.cc:485-541): Bouguet's
+        rectification of the pinhole rig and both cameras' undistort and
+        rectify maps (``utils/rectification``, as cv2's stereoRectify with
+        zero disparity and alpha -1 and initUndistortRectifyMap); camera
+        1's calibration and bf become the rectified projection's."""
+        if self.cam2 is None or self.T_c1_c2 is None:
+            return
+        size = (self.new_width or self.width, self.new_height or self.height)
+        K1, K2 = _K64(self.cam), _K64(self.cam2)
+        # T_c1_c2 is camera 1 <- camera 2; the rectification takes 2 <- 1
+        T21 = np.linalg.inv(self.T_c1_c2.astype(np.float64))
+        R1, R2, P1, P2 = rectification.stereo_rectify(
+            K1, self.dist1, K2, self.dist2, size, T21[:3, :3], T21[:3, 3])
+        self.rect_maps = (
+            *rectification.init_undistort_rectify_map(
+                K1, self.dist1, R1, P1[:3, :3], size),
+            *rectification.init_undistort_rectify_map(
+                K2, self.dist2, R2, P2[:3, :3], size))
+        self.cam = Pinhole.from_list([P1[0, 0], P1[1, 1], P1[0, 2], P1[1, 2]])
+        self.bf = self.baseline * float(P1[0, 0])
+
+    def rectify(self, img_l: np.ndarray, img_r: np.ndarray):
+        """The precomputed rectification maps applied to a uint8 stereo
+        pair (System.cc's TrackStereo path), as cv2.remap with bilinear
+        interpolation and a constant 0 border computes it."""
+        if self.rect_maps is None:
+            return img_l, img_r
+        M1l, M2l, M1r, M2r = self.rect_maps
+        return (rectification.remap_linear(img_l, M1l, M2l),
+                rectification.remap_linear(img_r, M1r, M2r))

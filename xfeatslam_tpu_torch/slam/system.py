@@ -1,4 +1,4 @@
-"""System: the public session facade, monocular and RGB-D.
+"""System: the public session facade, monocular, stereo and RGB-D.
 
 Counterpart of ``xfeatslam_tpu/slam/system.py`` (the role of ORB-SLAM3's
 System.cc): build the pipeline (extractor, atlas, tracking, local
@@ -11,9 +11,12 @@ frame.
 The device work runs on ``device``: CUDA unless the caller asks for the
 CPU, and without a GPU the default raises. Localization mode, the
 trajectory savers and the tracked-state getters are here. The feature
-backend is XFeat or ORB (``backend="orb"`` or ``USE_ORB``). Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: the stereo and
-inertial sensors (items 14, 15) and the viewer and map export (item 16).
+backend is XFeat or ORB (``backend="orb"`` or ``USE_ORB``). A STEREO
+session takes rectified pairs (``track_stereo``; ``Settings.rectify``
+rectifies a raw pinhole pair first) and runs the RGB-D tracker on their
+stereo depth, as the JAX package's System does. Not ported yet, each
+raising ``NotImplementedError`` with its ROADMAP item: the inertial
+sensors (item 15) and the viewer and map export (item 16).
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ class Sensor(enum.Enum):
 
 
 _UNPORTED_SENSORS = {
-    Sensor.STEREO: "stereo waits for ROADMAP item 14",
     Sensor.IMU_MONOCULAR: "the inertial modes wait for ROADMAP item 15",
     Sensor.IMU_STEREO: "the inertial modes wait for ROADMAP item 15",
     Sensor.IMU_RGBD: "the inertial modes wait for ROADMAP item 15",
@@ -107,8 +109,7 @@ class System:
         self.map = self.atlas.active
         self.pipeline = FramePipeline(
             self.extractor, settings.cam, bf=settings.bf,
-            depth_factor=settings.depth_map_factor,
-        )
+            depth_factor=settings.depth_map_factor, timer=self.timer)
         cfg = TrackerConfig(fps=settings.fps, th_depth=settings.th_depth,
                             th_far_points=settings.th_far_points,
                             binary=profile.binary, th_high=profile.th_high,
@@ -116,7 +117,8 @@ class System:
                             scale_factor=scale_factor)
         self.loop_closing = None
         if enable_loop_closing and enable_mapping:
-            # the scale is observable with depth, not from one camera
+            # the scale is observable with depth or a stereo rig, not from
+            # one camera
             self.loop_closing = LoopClosing(
                 self.map, settings.cam, bf=settings.bf,
                 fix_scale=sensor != Sensor.MONOCULAR,
@@ -148,8 +150,16 @@ class System:
             self._run_backend()
         return state, pose
 
-    def track_stereo(self, gray_l, gray_r, timestamp, imu=None):
-        raise NotImplementedError(_UNPORTED_SENSORS[Sensor.STEREO])
+    def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
+                     timestamp: float, imu=None):
+        """A rectified stereo pair (System::TrackStereo). Returns (state,
+        (R,t) world->camera or None)."""
+        with self.timer.span("track"):
+            state, pose = self.tracking.grab_stereo(gray_l, gray_r,
+                                                    timestamp, imu=imu)
+        with self.timer.span("backend"):
+            self._run_backend()
+        return state, pose
 
     def track_monocular(self, gray: np.ndarray, timestamp: float, imu=None):
         """Returns (state, (R,t) world->camera or None)."""

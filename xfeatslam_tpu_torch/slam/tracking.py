@@ -1,4 +1,5 @@
-"""Tracking: the per-frame state machine, monocular and RGB-D, non-inertial.
+"""Tracking: the per-frame state machine, monocular, stereo and RGB-D,
+non-inertial.
 
 Counterpart of ``xfeatslam_tpu/slam/tracking.py`` (the role of ORB-SLAM3's
 Tracking.cc): the states NOT_INITIALIZED / OK / RECENTLY_LOST / LOST,
@@ -10,9 +11,13 @@ Every steady-state XFeat frame runs extraction and both tracking stages
 as one device call: on the card the frame step's CUDA graph
 (``track_step.RgbdFrameStepGraph``), on the CPU the eager
 ``xfeat_rgbd_frame_step``; a monocular frame takes the same step without
-depth. Its outputs come back in one transfer. An ORB frame (binary
-descriptors, 8 octaves) is built first and then tracked by both stages in
-one call (``track_step.TwoStageTrackGraph`` on the card).
+depth, a rectified stereo pair ``xfeat_stereo_frame_step`` (both views as
+a batch of 2, row-band stereo matching for the depth;
+``track_step.StereoFrameStepGraph`` on the card). Its outputs come back in
+one transfer. An ORB frame (binary descriptors, 8 octaves), an RGB-D
+image or a stereo pair, is built first and then tracked by both stages in
+one call (``track_step.TwoStageTrackGraph`` on the card). Stereo frames
+carry depth and take the RGB-D initialization and keyframe policy.
 
 A monocular map starts from two frames (``_initialize_mono``): windowed
 matches, the two-view H/F reconstruction (``optim/two_view``, its RANSAC
@@ -26,8 +31,8 @@ RANSAC, the pose LM and the guided widening ladder); localization mode
 visual odometry on the last frame's depth points off the map
 (``vo_mode``).
 
-Not ported yet, each raising ``NotImplementedError`` where it would run:
-stereo frames (ROADMAP item 14) and the inertial modes (item 15).
+Not ported yet, raising ``NotImplementedError`` where it would run: the
+inertial modes (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from ..ops import image as image_ops
 from ..ops import matching
 from ..optim import local_ba, pnp, pose_opt, track_step, two_view
 from ..optim.track_step import fetch
-from .frame import DEPTH_EDGE_REL, Frame, FramePipeline
+from .frame import (DEPTH_EDGE_REL, STEREO_MAX_DISP, STEREO_MIN_DISP,
+                    STEREO_TH_XFEAT, Frame, FramePipeline)
 from .map import KeyFrame, SlamMap
 from .retrieval import aggregate_global_desc
 
@@ -144,13 +150,14 @@ class Tracking:
     def __init__(self, pipeline: FramePipeline, slam_map: SlamMap,
                  cam: camera_ops.Pinhole, config: TrackerConfig, atlas,
                  timer=None, retrieval=None, sensor: str = "rgbd"):
-        """sensor: "rgbd" or "mono". timer: an optional
-        ``utils.timing.StageTimer`` that receives the spans
-        ``track.extract`` (a frame built outside the frame step: ORB
-        frames, and XFeat's first), ``track.snapshot`` (the host's inputs
-        of the frame step or of the tracking stages) and
-        ``track.frame_step`` (the step or the stages, and their one host
-        read). retrieval:
+        """sensor: "rgbd" (RGB-D and stereo frames, which carry depth) or
+        "mono". timer: an optional ``utils.timing.StageTimer`` that
+        receives the spans ``track.frame_build`` (a frame built outside the
+        frame step: ORB frames, and XFeat's first; the pipeline's own
+        ``track.extract`` and ``track.stereo_match`` lie inside it),
+        ``track.snapshot`` (the host's inputs of the frame step or of the
+        tracking stages) and ``track.frame_step`` (the step or the stages,
+        and their one host read). retrieval:
         the keyframe database that relocalization queries (loop closing's;
         None without it, and candidates come from a brute-force cosine over
         the keyframes' global descriptors)."""
@@ -169,6 +176,9 @@ class Tracking:
         on_card = self.device.type == "cuda"
         self._graph = (track_step.RgbdFrameStepGraph(pipeline.extractor.model)
                        if on_card and self._xfeat else None)
+        self._stereo_graph = (
+            track_step.StereoFrameStepGraph(pipeline.extractor.model)
+            if on_card and self._xfeat else None)
         self._track_graph = (track_step.TwoStageTrackGraph(self.device)
                              if on_card else None)
         self.last_kf_id: Optional[int] = None  # most recent created KF
@@ -218,8 +228,21 @@ class Tracking:
                 "IMU samples: the inertial modes wait for ROADMAP item 15")
         frame = self._grab_rgbd_fused(gray, depth_raw, timestamp)
         if frame is None:
-            with self._span("track.extract"):
+            with self._span("track.frame_build"):
                 frame = self.pipeline.build_rgbd(gray, depth_raw, timestamp)
+        return self._track(frame)
+
+    def grab_stereo(self, gray_l, gray_r, timestamp, imu=None):
+        """A rectified stereo pair (GrabImageStereo): the stereo frame step
+        first (XFeat), else the pair built by ``build_stereo``; stereo depth
+        then drives the RGB-D initialization and point creation."""
+        if imu:
+            raise NotImplementedError(
+                "IMU samples: the inertial modes wait for ROADMAP item 15")
+        frame = self._grab_stereo_fused(gray_l, gray_r, timestamp)
+        if frame is None:
+            with self._span("track.frame_build"):
+                frame = self.pipeline.build_stereo(gray_l, gray_r, timestamp)
         return self._track(frame)
 
     def grab_mono(self, gray, timestamp, imu=None):
@@ -230,19 +253,20 @@ class Tracking:
                 "IMU samples: the inertial modes wait for ROADMAP item 15")
         frame = self._grab_rgbd_fused(gray, None, timestamp)
         if frame is None:
-            with self._span("track.extract"):
+            with self._span("track.frame_build"):
                 frame = self.pipeline.build_mono(gray, timestamp)
         return self._track(frame)
 
     def _fused_grab_setup(self, timestamp):
         """Preconditions and speculative inputs of the whole-frame step: the
-        XFeat backend (float descriptors), OK state, a monotonic timestamp;
-        the motion-model pose prediction and the stage-1 / stage-2
-        snapshots voted from the LAST frame's bindings."""
+        XFeat backend (float descriptors), a pinhole camera, OK state, a
+        monotonic timestamp; the motion-model pose prediction and the
+        stage-1 / stage-2 snapshots voted from the LAST frame's bindings."""
         last = self.last_frame
         if (self.state != State.OK or self.only_tracking or last is None
                 or last.R is None or self.cfg.binary or not self._xfeat
-                or timestamp < last.timestamp):  # would start a new map
+                or timestamp < last.timestamp  # would start a new map
+                or type(self.cam) is not camera_ops.Pinhole):
             return None
         ids = self._local_map_points(last)
         if ids is None or len(ids) == 0:
@@ -275,8 +299,13 @@ class Tracking:
             setup = self._fused_grab_setup(timestamp)
             if setup is None:
                 return None
+            # the monocular step ignores its depth input
+            depth_m = (np.zeros((1, 1), np.float32) if depth_raw is None
+                       else self.pipeline.depth_meters(depth_raw))
             tensors, (ids, ids1, padded_ids, R0, t0) = self._step_inputs(
-                gray, depth_raw, setup)
+                setup)
+            tensors = [image_ops.to_float_image(gray, self.device),
+                       self._t(depth_m)] + tensors
         cfg = self.cfg
         scalars = (self.cam, self.pipeline.bf, DEPTH_EDGE_REL,
                    1.0 / cfg.obs_sigma ** 2, cfg.motion_radius,
@@ -302,17 +331,54 @@ class Tracking:
         return (self.timer.span(name) if self.timer is not None
                 else contextlib.nullcontext())
 
-    def _step_inputs(self, gray, depth_raw, setup):
-        """The frame step's tensor arguments, on the device."""
+    def _grab_stereo_fused(self, gray_l, gray_r, timestamp) -> Optional[Frame]:
+        """Speculative whole-frame stereo grab: both views as one batch of
+        2, row-band stereo matching, the depth and both tracking stages in
+        one device call (``StereoFrameStepGraph`` on the card, the eager
+        ``xfeat_stereo_frame_step`` on the CPU) and one host transfer. The
+        same contract as ``_grab_rgbd_fused``: None before initialization,
+        for ORB, or when the two images differ in size, and then the pair
+        is built by ``build_stereo``."""
+        if gray_l.shape != gray_r.shape:
+            return None
+        with self._span("track.snapshot"):
+            setup = self._fused_grab_setup(timestamp)
+            if setup is None:
+                return None
+            tensors, (ids, ids1, padded_ids, R0, t0) = self._step_inputs(
+                setup)
+            images = torch.cat([image_ops.to_float_image(g, self.device)
+                                for g in (gray_l, gray_r)])
+            tensors = [images] + tensors
+        cfg = self.cfg
+        scalars = (self.cam, self.pipeline.bf, STEREO_MIN_DISP,
+                   STEREO_MAX_DISP, STEREO_TH_XFEAT,
+                   1.0 / cfg.obs_sigma ** 2, cfg.motion_radius,
+                   cfg.local_radius, cfg.th_high, 0.9,
+                   cfg.min_inliers_motion, cfg.scale_factor,
+                   2.0 * float(self.cam.cx), 2.0 * float(self.cam.cy))
+        kw = dict(num_keypoints=self.pipeline.extractor.nfeatures,
+                  n_levels=cfg.n_levels)
+        with self._span("track.frame_step"):
+            if self._stereo_graph is not None:
+                res = self._stereo_graph(*tensors, *scalars, **kw)
+            else:
+                res = track_step.xfeat_stereo_frame_step(
+                    self.pipeline.extractor.model, *tensors, *scalars, **kw)
+            out, r1, r2 = fetch(res)
+        frame = self.pipeline.assemble_rgbd(out, timestamp)
+        frame.R, frame.t = R0, t0
+        frame._fused_pending = (r1, r2, ids, ids1, padded_ids)
+        self.stats["fused_grab"] = self.stats.get("fused_grab", 0) + 1
+        return frame
+
+    def _step_inputs(self, setup):
+        """The frame step's tensor arguments after the image (and depth),
+        on the device."""
         (R0, t0, ids, ids1, safe1, valid1, pos, desc, valid2, padded_ids,
          safe2) = setup
         pts = self.map.points
-        # the monocular step ignores its depth input
-        depth_m = (np.zeros((1, 1), np.float32) if depth_raw is None
-                   else self.pipeline.depth_meters(depth_raw))
         tensors = [
-            image_ops.to_float_image(gray, self.device),
-            self._t(depth_m),
             self._t(R0), self._t(t0),
             self._t(pts.pos[safe1]), self._t(pts.desc[safe1]),
             self._t(valid1), self._t(pts.angle[safe1]),
