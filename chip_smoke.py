@@ -95,8 +95,9 @@ Phases, each fatal on failure:
      ``csrc/local_ba.cu``) at the bucket's shapes (32 cameras, 4096
      points, 16384 observations) on the SLAM run's last first-stage
      problem and on a full bucket, for both schedules local mapping runs:
-     launches per solve from the wrapper's counter (at most 1,000 for a
-     (5, 0) round) and ``torch.profiler``; two eager solves bit-identical,
+     launches per solve from the wrapper's counter (one: a persistent
+     cooperative launch) and ``torch.profiler`` (at most 8 device events
+     for a (5, 0) round); two eager solves bit-identical,
      the ``LocalBAGraph`` replay bit-identical to the eager solve; eager,
      capture and replay ms, the plain twin's ms; the kernels' solve
      against the plain twin on the card and against the CPU's solve;
@@ -127,7 +128,7 @@ Phases, each fatal on failure:
      frames, loop closing off: < 1 cm max, < 5 mm median; 40 frames, loop
      closing on, twice, counted: every frame OK, < 3 cm, >= 3 keyframes,
      the second run bit-identical to the first, pose_lm 2 per
-     graph-tracked frame, local_ba 431 per round, no XFeat kernel); the
+     graph-tracked frame, local_ba 1 per round, no XFeat kernel); the
      readers phase's TUM directory through ``rgbd_tum --backend orb``
      (within 1 cm) and ``mono_tum --backend orb`` (>= 1 keyframe);
  14. XFeat stereo, counted: ``System(Sensor.STEREO).track_stereo`` on the
@@ -203,9 +204,10 @@ KERNEL_SOURCES = {
     "orb_describe": ("xfeatslam_tpu_torch/csrc/orb_describe.cu",
                      "xfeatslam_tpu/models/orb.py:148 (XLA, not Pallas)"),
 }
-# a (5, 0) local-BA round must stay under this many kernel launches (it
-# was ~16,429 as tensor ops; the kernels make it 431)
-LOCAL_BA_MAX_LAUNCHES = 1000
+# a (5, 0) local-BA round must stay at this many kernel launches (it was
+# ~16,429 as tensor ops and 431 as a kernel sequence; one persistent
+# cooperative launch makes it 1)
+LOCAL_BA_MAX_LAUNCHES = 1
 # float ops per valid observation of the BA solver, counted from the
 # algorithm at its least: per CG step the residual's product J v once (27
 # MACs) and J^T of it on both sides (18 + 9 MACs), 108 in all; per LM
@@ -275,6 +277,11 @@ ORB_SLAM_KERNELS = {"pose_lm": None, "local_ba": None, "orb_fast": None,
 # NVIDIA H100 80GB HBM3 at 700 W): candidates ms and device events,
 # describe ms and device events
 TENSOR_OPS_CANDIDATES, TENSOR_OPS_DESCRIBE = (4.9074, 1857), (3.8532, 435)
+# the same stages by replay with the two ORB kernels and the levels
+# resized by F.interpolate(antialias=True), before the resize took JAX's
+# weights and order (PERF.md, PR 10's chip runs 3-6 on NVIDIA H100 80GB
+# HBM3 at 700 W): ms ranges
+PR10_CANDIDATES_MS, PR10_DESCRIBE_MS = (1.35, 1.52), (0.377, 0.380)
 # float ops of the ORB kernels, counted from the algorithm at its least:
 # orb_fast per pixel 16 differences and absolutes, then per threshold
 # p +- t, 32 compares, 16 adds, the two run-of-9 tests (~36), the select,
@@ -913,21 +920,26 @@ def compare_pose_lm(ck, args, kwargs, label):
 def pose_lm_bound(args, kwargs):
     """The least time of one pose-LM call on these inputs: each input read
     and each output written once, or POSE_LM_OPS_PER_EDGE_PASS float ops
-    per valid edge in each of its passes (2 schedules x rounds x (iters + 1)
-    LM passes, the two final cost passes, the classification). Valid edges
+    per valid edge in each of its passes (2 schedules x (rounds x (iters +
+    1) + 1) LM and final cost passes, the classification). Valid edges
     count in every pass, though a round's active set is smaller. Prints
-    both bounds; returns (ms, "bytes" or "operations")."""
+    both bounds and the chain the kernel runs: rounds x (iters + 1) + 2
+    dependent passes per schedule (46 at 4 x 10: the LM passes, the final
+    cost, the classification that the two share), the two schedules side
+    by side on two SMs; returns (ms, "bytes" or "operations")."""
     N = args[2].shape[0]
     rounds, iters = kwargs.get("rounds", 4), kwargs.get("iters", 10)
     n_valid = int(args[7].sum())
     nbytes = N * (3 + 2 + 1 + 1) * 4 + 2 * N + 12 * 4 + (12 * 4 + N + 4
                                                           + 4 * N)
-    passes = 2 * rounds * (iters + 1) + 2 + 1
+    chain = rounds * (iters + 1) + 2  # the LM passes, the final cost, the
+    passes = 2 * chain - 1            # classification (split by the two)
     flops = passes * n_valid * POSE_LM_OPS_PER_EDGE_PASS
     print(f"pose_lm bound at N={N}, {n_valid} valid: bytes {nbytes} -> "
           f"{nbytes / PEAK_BYTES_PER_S * 1e3:.6f} ms, float ops {flops} -> "
-          f"{flops / PEAK_F32_FLOPS * 1e3:.6f} ms; {passes} dependent "
-          "passes, each ending in a block reduction")
+          f"{flops / PEAK_F32_FLOPS * 1e3:.6f} ms; {chain} dependent passes "
+          "per schedule, the two schedules concurrent, each pass ending in "
+          "a block reduction and a 6x6 solve")
     return bound_ms(nbytes, flops)
 
 
@@ -1876,8 +1888,9 @@ def local_ba_phase(ck, problems, settings, dev):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 eager()
                 torch.cuda.synchronize()
-            kernels = sum(1 for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            # the raw kineto records, as the other phases count them
+            kernels = sum(1 for e in prof.profiler.kineto_results.events()
+                          if e.device_type() == torch.autograd.DeviceType.CUDA)
             key = f"{label}, stage_iters={si}"
             b_ms, b_by = local_ba_bound(prob, si)
             report[key] = {
@@ -1900,6 +1913,8 @@ def local_ba_phase(ck, problems, settings, dev):
             if si == (5, 0):
                 check(launches <= LOCAL_BA_MAX_LAUNCHES,
                       f"local BA [{key}]: {launches} launches per round")
+                check(kernels <= 8, f"local BA [{key}]: {kernels} device "
+                      "events per round")
             check(same, f"local BA [{key}]: two eager solves differ")
             check(g_same, f"local BA [{key}]: the replay differs from the "
                   "eager solve")
@@ -2417,7 +2432,7 @@ def orb_extractor_phase(ck):
     rendered 640x480 frame (tests/test_torch_orb.py's bars: level-0
     candidates and their quadtree selection equal, per-level keypoint
     Jaccard >= ORB_LEVEL_JACCARD, >= 99% of the shared keypoints'
-    descriptor bits; the resized levels' largest gap printed), each
+    descriptor bits; the resized levels equal bit for bit), each
     stage's graph replay against the eager call on the card bit for bit,
     the two kernels against their twins (``orb_kernel_checks``), one
     launch of each per extractor call, and the stages' times: candidates
@@ -2454,10 +2469,13 @@ def orb_extractor_phase(ck):
     jac = [round(jaccard(pixel_set(rep[lvl][0], rep[lvl][2]),
                          pixel_set(ref[lvl][0], ref[lvl][2])), 4)
            for lvl in range(len(sizes))]
-    # the resized levels, card against CPU (antialiased bilinear)
+    # the resized levels, card against CPU: the same weights and the same
+    # exactly rounded float64 chain on both, so the same bits
     level_gap = [float((orb._level_image(x_dev, lvl, h, w).cpu()
                         - orb._level_image(x_cpu, lvl, h, w)).abs().max())
                  for lvl, (h, w) in enumerate(sizes)]
+    check(max(level_gap) == 0.0, "orb: the card's resized levels differ "
+          f"from the CPU's by up to {max(level_gap)}")
     kp_c, va_c, keep_c = card.select(rep, sizes)
     kp_r, va_r, _ = cpu.select(ref, sizes)
     check(np.array_equal(kp_c[0].numpy(), kp_r[0].numpy())
@@ -2550,7 +2568,10 @@ def orb_extractor_phase(ck):
           f"{TENSOR_OPS_CANDIDATES[1]} events); describe "
           f"{report['describe_replay_ms']} ms in {ev_d} device events "
           f"(tensor ops: {TENSOR_OPS_DESCRIBE[0]} ms, "
-          f"{TENSOR_OPS_DESCRIBE[1]} events)")
+          f"{TENSOR_OPS_DESCRIBE[1]} events); PR 10's kernels with the "
+          f"F.interpolate resize: candidates {PR10_CANDIDATES_MS[0]}-"
+          f"{PR10_CANDIDATES_MS[1]} ms, describe {PR10_DESCRIBE_MS[0]}-"
+          f"{PR10_DESCRIBE_MS[1]} ms")
     return report, rows
 
 
@@ -2581,7 +2602,7 @@ def orb_slam_phase(ck):
     frames through the tracking stages' graph, the second run's poses and
     map bit-identical to the first's). The second run replays the first's
     graphs: its wall per frame, spans and launches (pose_lm 2 per
-    graph-tracked frame, local_ba 431 per BA round, no XFeat kernel).
+    graph-tracked frame, local_ba 1 per BA round, no XFeat kernel).
     Returns the second run's launch counts."""
     from xfeatslam_tpu_torch.ops.camera import Pinhole
     from xfeatslam_tpu_torch.slam.settings import Settings
@@ -2639,9 +2660,10 @@ def orb_slam_phase(ck):
         check(run["tracked"] >= ORB_MIN_TRACKED and n_lm >= 2 * run["tracked"],
               f"orb slam run {r + 1}: too few frames through the graph")
         # run 1's counts hold its captures' warm-up calls too
-        check(r == 0 or run["counts"]["local_ba"] == 431 * rounds,
-              f"orb slam run {r + 1}: local_ba launches are not 431 per "
-              "round")
+        per_round = ck.local_ba_launches((5, 0), 40)
+        check(r == 0 or run["counts"]["local_ba"] == per_round * rounds,
+              f"orb slam run {r + 1}: local_ba launches are not {per_round} "
+              "per round")
         runs.append(run)
     a, b = runs
     same = all(np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])

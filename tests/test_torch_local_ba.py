@@ -332,12 +332,12 @@ def test_cpu_tensors_take_the_plain_twin():
 @pytest.fixture
 def as_if_on_cuda(monkeypatch):
     """The wrapper's CUDA branch on CPU tensors: the library's calls are
-    recorded; the solve writes 431 launches to its count."""
+    recorded; the solve writes its one launch to its count."""
     calls = []
 
     def launch(fn, dev, *a):
         calls.append((fn, a))
-        ctypes.c_int.from_address(a[-1]).value = 431
+        ctypes.c_int.from_address(a[-1]).value = 1
 
     monkeypatch.setattr(ck, "_on_cuda", lambda *ts: True)
     monkeypatch.setattr(ck, "_launch", launch)
@@ -388,7 +388,7 @@ def test_wrapper_passes_the_kernels_their_arguments(as_if_on_cuda):
     R, t, X, inlier, chi2 = ck.local_ba(prob, tc.Pinhole.from_list(CAMP),
                                         BF, stage_iters=(5, 0), cg_iters=7,
                                         huber=False)
-    assert ck.local_ba.launches == before + 431
+    assert ck.local_ba.launches == before + 1
     (fn0, size_args), (fn, a) = as_if_on_cuda
     assert fn0 == "local_ba_scratch_floats"
     assert size_args == (C, P, O, NCH, PW, 5)
@@ -406,9 +406,9 @@ def test_wrapper_passes_the_kernels_their_arguments(as_if_on_cuda):
 
 
 @pytest.mark.parametrize("stage_iters,cg,n", [
-    ((5, 0), 40, 431), ((0, 5), 40, 431), ((10, 10), 40, 1708),
-    ((0, 0), 40, 4), ((2, 3), 7, 4 + 2 * 2 + 5 * (5 + 14))])
+    ((5, 0), 40, 1), ((0, 5), 40, 1), ((10, 10), 40, 1),
+    ((0, 0), 40, 1), ((2, 3), 7, 1)])
 def test_launch_count_formula(stage_iters, cg, n):
-    """The kernels of one solve (csrc/local_ba.cu's sequence): 4, and per
-    stage with iterations 2 plus per LM iteration 5 and 2 per CG step."""
+    """The launches of one solve: csrc/local_ba.cu's one persistent
+    cooperative launch, whatever the stages and CG steps."""
     assert ck.local_ba_launches(stage_iters, cg) == n

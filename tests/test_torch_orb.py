@@ -5,21 +5,22 @@ images: a rendered room frame at 288x384 and a smoothed-noise image at
 
 Bars: level 0 exact (FAST scores and the 3x3 suppression at both
 thresholds; the candidates' xy, scores, validity and order). Levels >= 1
-are resized by ``F.interpolate(antialias=True)`` against
-``jax.image.resize`` (~4e-3 apart), so a FAST comparison on those values
-can flip: per-level keypoint Jaccard >= 0.95, keypoints compared as
-pixels of their level (measured: >= 0.9796 at 288x384, >= 0.98 at
-480x640; the extractor's selections 1.0 on both). The orientation moments and the blur at
+are resized by the port's ``resize_bilinear`` (JAX's weights and order;
+up to 2.3e-4 of 255 from ``jax.image.resize``, where XLA's own code
+rounds a weight or sums a dot product in another order), so a FAST
+comparison on those values could flip: per-level keypoint Jaccard >= 0.99,
+keypoints compared as pixels of their level (measured: 1.0 at every level
+of both images, candidates and the extractor's selections). The orientation moments and the blur at
 rtol 1e-5 (atol 1e-5 of the map's largest value: the sums run in another
 order); on JAX's keypoints the angles within 5e-7 rad at level 0 (exact
 integer sums; XLA's atan2 and torch's part by an ulp) and at levels >= 1 within 1e-4 rad, or 2 / (|m10| + |m01|) where the
 moments are small (their float32 sums of 961 terms differ by ~1 between the
-two orders: measured 5.5e-4 rad at |m| = 320 on the noise image), and >=
-99% of the descriptor bits equal. The quadtree exactly as the
+two orders: measured 5.0e-4 rad on the noise image), and >= 99.99% of the
+descriptor bits equal (measured 99.997%). The quadtree exactly as the
 JAX package's native build (not its Python fallback, which picks other
 keypoints on ties). The extractor end to end: the same keypoints at level
-0 (positions and scores equal), per-level Jaccard as above, >= 99% of the bits of the shared
-keypoints."""
+0 (positions and scores equal), per-level Jaccard as above, >= 99.99% of
+the bits of the shared keypoints (measured 99.9988%)."""
 
 import os
 
@@ -38,7 +39,8 @@ from xfeatslam_tpu_torch.models import orb as to  # noqa: E402
 from xfeatslam_tpu_torch.utils import synthetic  # noqa: E402
 
 N_FEATURES = 1000
-LEVEL_JACCARD = 0.95
+LEVEL_JACCARD = 0.99
+BIT_AGREEMENT = 0.9999
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -113,7 +115,7 @@ def test_candidates_level0_exact_with_order(case):
 
 def _pix(xy, valid):
     """Keypoints as pixels: the sub-pixel offset follows the FAST response,
-    which the resized levels move by ~1e-4."""
+    which the resized levels move by up to 3e-5."""
     return {tuple(p) for p in np.round(xy[valid]).astype(np.int64)}
 
 
@@ -178,7 +180,7 @@ def test_describe_on_jax_keypoints(case):
         n_same += int((dj[va] == dt[va]).sum())
         # invalid rows are zero in both
         assert not dt[~va].any() and not dj[~va].any()
-    assert n_same >= 0.99 * n_bits, n_same / n_bits
+    assert n_same >= BIT_AGREEMENT * n_bits, n_same / n_bits
 
 
 def _quadtree_draw(rng):
@@ -242,7 +244,7 @@ def test_extractor_end_to_end(case):
     shared = sorted(set(kj) & set(kt))
     dj = oj["desc"][0][vj][[kj[k] for k in shared]]
     dt = ot["desc"][0][vt][[kt[k] for k in shared]]
-    assert (dj == dt).mean() >= 0.99
+    assert (dj == dt).mean() >= BIT_AGREEMENT
     # the host's final order is by score, as numpy sorts it
     assert np.all(np.diff(ot["scores"][0][vt]) <= 0)
 

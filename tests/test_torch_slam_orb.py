@@ -8,8 +8,9 @@ The sequence is ``utils/synthetic.make_sequence`` at 384x288 with the TUM1
 intrinsics scaled by 0.6 and 1000 features, loop closing off. Bars: both
 Systems OK on every frame and within the JAX package's 14-frame ORB bars
 against the truth (max < 1 cm, median < 5 mm, >= 1 keyframe), the same
-keyframe and tracking counts, and the port within 5 mm of the JAX System
-on every frame. The 640x480 runs of ``tests/test_slam_integration.py``'s
+keyframe and tracking counts, and the port within 0.05 mm of the JAX
+System on every frame (measured 0.0142 mm: the pyramid levels are resized
+with JAX's weights and order, ~1 ulp from ``jax.image.resize``). The 640x480 runs of ``tests/test_slam_integration.py``'s
 ORB tests (14 frames, 40 frames) through both Systems are ``slow``."""
 
 import os
@@ -99,7 +100,7 @@ def test_orb_system_matches_jax(runs):
     for c in (cj, ct):
         err = np.linalg.norm(c - truth, axis=1)
         assert err.max() < 0.01 and np.median(err) < 0.005, err
-    assert np.linalg.norm(ct - cj, axis=1).max() < 0.005
+    assert np.linalg.norm(ct - cj, axis=1).max() < 5e-5
     # ORB frames carry orientations and octaves into the map
     kf = ts.map.keyframes[0]
     assert kf.desc.shape[1] == 256 and kf.octave.max() > 0

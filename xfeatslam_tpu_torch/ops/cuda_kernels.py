@@ -18,11 +18,12 @@ Kernels:
   similarity_top2       csrc/mnn_pairs.cu          (pallas_kernels.py:84)
   pose_lm               csrc/pose_lm.cu            (optim/pose_opt.py:82, XLA
                         code in the JAX package, not Pallas: the pose LM
-                        in one launch in place of ~20,000 small kernels)
+                        in one launch, a two-CTA cluster, in place of
+                        ~20,000 small kernels)
   local_ba              csrc/local_ba.cu           (optim/local_ba.py:102, XLA
                         code in the JAX package, not Pallas: a BA solve
-                        in ~85 launches per LM iteration in place of
-                        ~3,300)
+                        in one persistent cooperative launch in place of
+                        ~3,300 small kernels per LM iteration)
   orb_fast              csrc/orb_fast.cu           (models/orb.py:93-131, XLA
                         code in the JAX package: FAST at both thresholds,
                         suppression and the border of every level in one
@@ -476,8 +477,9 @@ def mutual_nn_top2(desc_a, desc_b, valid_a, valid_b):
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
-# edges one launch takes: a 32-bit mask of active edges per thread of a
-# 256-thread half (kMaxEdges in csrc/pose_lm.cu)
+# edges one launch takes: a 16-bit mask of each flag per thread of a
+# 512-thread CTA, and 28 B an edge of shared memory (kMaxEdges in
+# csrc/pose_lm.cu)
 POSE_LM_MAX_EDGES = 8192
 
 
@@ -615,8 +617,8 @@ def pose_lm_plain(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid,
 def pose_lm(R0, t0, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid,
             cam: Pinhole, bf: float = 0.0, rounds: int = 4, iters: int = 10):
     """The robust pose LM of ``optim/pose_opt.pose_optimization`` in one
-    launch: both schedules (one per half of one CTA), their rounds and LM
-    iterations, the pick and the final classification.
+    launch: both schedules (one CTA each, in one thread-block cluster),
+    their rounds and LM iterations, the pick and the final classification.
 
     Args:
       R0 (3,3), t0 (3,) float32: the initial pose Tcw.
@@ -682,16 +684,16 @@ def local_ba_plain(prob, cam: Pinhole, bf: float = 0.0,
 
 
 def local_ba_launches(stage_iters, cg_iters: int) -> int:
-    """Kernel launches of one solve: 4, plus per stage with iterations 2
-    and per LM iteration 5 + 2 per CG step."""
-    return 4 + sum(2 + n * (5 + 2 * cg_iters) for n in stage_iters if n > 0)
+    """Kernel launches of one solve: one persistent cooperative launch,
+    whatever the stages and CG steps."""
+    return 1
 
 
 def local_ba(prob, cam: Pinhole, bf: float = 0.0, stage_iters=(5, 10),
              cg_iters: int = 40, huber: bool = True):
-    """The two-stage robust LM of ``optim/local_ba.bundle_adjust`` as the
-    kernel sequence of ``csrc/local_ba.cu`` (``local_ba_launches`` of
-    them).
+    """The two-stage robust LM of ``optim/local_ba.bundle_adjust`` as one
+    cooperative launch of ``csrc/local_ba.cu``'s persistent kernel (its
+    phases separated by grid barriers).
 
     Args:
       prob: an ``optim/local_ba.BAProblem`` (C cameras, P points, O

@@ -8,7 +8,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import resolve_device
 
@@ -28,16 +27,111 @@ def to_float_image(img, device=None):
     return x.float()
 
 
+# jax.image.resize's column sums (XLA:CPU splits a long reduction into
+# windows of this many terms, each summed in order, then sums the windows)
+_SUM_WINDOW = 32
+_EPS32 = float(np.finfo(np.float32).eps)
+# (n_in, n_out, device) -> (tap indices (n_out, T) int64, the float32 weights
+# (n_out, T) held as float64)
+_TAPS: dict = {}
+
+
+def _fma32(a, b, c):
+    """float32 a * b + c rounded once, as a fused multiply-add: the product
+    of two float32 values is exact in float64, so one float64 sum and the
+    rounding to float32 give the fused result (but for double-rounding
+    ties, which no input here has shown)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def resize_weights(n_in: int, n_out: int):
+    """The (n_in, n_out) float32 weights of one axis of
+    ``jax.image.resize(..., "bilinear")`` (``compute_weight_mat`` with the
+    triangle kernel and its default antialias), with the float32 operations
+    XLA:CPU compiles it to: sample positions ``(j + 0.5) * inv - 0.5`` by a
+    fused multiply-add, the kernel widened by 1 / scale when shrinking (a
+    multiply by the float32 reciprocal, not a division), each column
+    divided by its sum (in windows of 32) where that sum exceeds 1000 eps,
+    and columns whose sample falls outside [-0.5, n_in - 0.5] zeroed."""
+    f32 = torch.float32
+    inv = 1.0 / (n_out / n_in)
+    c1 = torch.tensor(inv, dtype=f32)
+    j5 = torch.arange(n_out, dtype=f32) + 0.5
+    sample = _fma32(j5, c1, torch.tensor(-0.5, dtype=f32))
+    d = (sample[None, :] - torch.arange(n_in, dtype=f32)[:, None]).abs()
+    if inv > 1.0:  # shrinking: the antialias widens the triangle
+        d = d * (torch.tensor(1.0, dtype=f32) / c1)
+    w = (1.0 - d).clamp_min(0.0)
+    n_win = -(-n_in // _SUM_WINDOW)
+    padded = torch.zeros((n_win * _SUM_WINDOW, n_out), dtype=f32)
+    padded[:n_in] = w
+    windows = padded.reshape(n_win, _SUM_WINDOW, n_out)
+    part = windows[:, 0]
+    for i in range(1, _SUM_WINDOW):  # in order, not torch.sum's tree
+        part = part + windows[:, i]
+    total = torch.zeros(n_out, dtype=f32)
+    for k in range(n_win):
+        total = total + part[k]
+    w = torch.where(total.abs() > 1000.0 * _EPS32,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _taps(n_in: int, n_out: int, device):
+    """Each output's nonzero weights and their input indices in increasing
+    order, padded with zero weights to the widest output; cached on the
+    device (the first call, outside any capture, makes them)."""
+    key = (n_in, n_out, str(device))
+    t = _TAPS.get(key)
+    if t is None:
+        w = resize_weights(n_in, n_out).T  # (n_out, n_in)
+        nz = w != 0
+        T = max(int(nz.sum(1).max()), 1)
+        # the nonzero columns first, in index order: a stable sort of ~nz
+        order = torch.sort((~nz).to(torch.int8), dim=1, stable=True).indices
+        idx = order[:, :T]
+        wt = torch.gather(w, 1, idx)
+        t = _TAPS[key] = (idx.to(device), wt.double().to(device))
+    return t
+
+
+def _contract(x, dim: int, n_out: int):
+    """One axis of the resize: out[j] = sum_t w[j, t] x[idx[j, t]] as a
+    chain of fused multiply-adds over the taps in input order, starting
+    from 0 (the dot product's order on XLA:CPU; zero-weight padding taps
+    leave the sum as it is)."""
+    idx, wt = _taps(x.shape[dim], n_out, x.device)
+    xt = x.movedim(dim, -1)
+    # float32 times float64: the products, exact, in float64
+    prod = torch.mul(xt[..., idx], wt)  # (..., n_out, T)
+    acc = prod[..., 0].float()
+    for t in range(1, idx.shape[1]):
+        # one kernel a tap: the sum in float64, rounded once to float32
+        torch.add(prod[..., t], acc, out=acc)
+    return acc.movedim(-1, dim)
+
+
 def resize_bilinear(x, out_hw):
-    """Half-pixel-center bilinear resize of (B,H,W,C). Antialiased when it
-    shrinks, like ``jax.image.resize``, which the JAX package uses: without
-    the antialias filter a 500x700 -> 480x672 shrink differs from JAX by up
-    to 0.084, with it by about 3e-6."""
-    _, H, W, _ = x.shape
-    shrink = out_hw[0] < H or out_hw[1] < W
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
-                      mode="bilinear", align_corners=False, antialias=shrink)
-    return y.permute(0, 2, 3, 1)
+    """Half-pixel-center bilinear resize of (B,H,W,C) float32 as
+    ``jax.image.resize(..., "bilinear")`` computes it on the CPU: the
+    antialiased triangle weights of ``resize_weights``, applied one axis at
+    a time in the order JAX's einsum takes (the cheaper first, H on a tie),
+    each output a chain of fused multiply-adds over its taps. Equal to JAX
+    bit for bit where XLA's own code keeps that order (PERF.md records
+    where it does not)."""
+    B, H, W, C = x.shape
+    oh, ow = (int(v) for v in out_hw)
+    do_h, do_w = oh != H, ow != W
+    # opt_einsum's flop counts of the two orders (B and C common to both)
+    h_first = not (do_h and do_w) or W * oh * (H + ow) <= H * ow * (W + oh)
+    if do_h and h_first:
+        x = _contract(x, 1, oh)
+    if do_w:
+        x = _contract(x, 2, ow)
+    if do_h and not h_first:
+        x = _contract(x, 1, oh)
+    return x
 
 
 def _grid_sample_coords(coords_xy, src_hw, norm_hw):

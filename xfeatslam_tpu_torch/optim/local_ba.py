@@ -12,7 +12,7 @@ and masked).
 
 ``bundle_adjust`` dispatches on the device, as ``pose_opt`` does: CUDA
 tensors go to the hand-written kernels of ``csrc/local_ba.cu``
-(``ops/cuda_kernels.local_ba``: ~85 launches per LM iteration, summing
+(``ops/cuda_kernels.local_ba``: one persistent launch per solve, summing
 each camera's and each point's observations in the fixed order of a
 ``SegmentPlan``, built once per problem on the host), CPU tensors to
 ``bundle_adjust_plain``. That plain twin is the JAX code written out in
@@ -356,9 +356,9 @@ class LocalBAGraph(CapturedCalls):
     """``bundle_adjust`` captured and replayed (``track_step.CapturedCalls``):
     the counterpart of the JAX package's one jitted solve.
 
-    A round of five LM iterations launches 431 kernels
-    (``cuda_kernels.local_ba_launches``), which eager calls pay for on the
-    host. The graph's key holds, besides
+    A solve is one cooperative launch
+    (``cuda_kernels.local_ba_launches``); the graph saves the host its
+    wrapper's checks and allocations. The graph's key holds, besides
     each tensor's shape and dtype (the plan's too, which is an input, so
     one graph serves every problem of a bucket), the camera, bf,
     ``stage_iters``, ``cg_iters`` and ``huber``. The segment sums add in a
