@@ -114,16 +114,19 @@ Phases, each fatal on failure:
      card against the port's CPU run of one rendered 640x480 frame
      (level-0 candidates with their order and their quadtree selection
      equal, per-level keypoint Jaccard and descriptor bits at
-     tests/test_torch_orb.py's bars), each stage's graph replay bit for
-     bit against its eager call; the two ORB kernels (``orb_fast``,
-     ``orb_describe``) against their plain twins on the frame's levels
-     and keypoints (level 0 exact: scores, survivors, angles, bits; the
-     other levels survivors by Jaccard >= 0.999, angles within 1e-4 rad,
-     >= 0.999 of the bits) and at odd shapes (a level narrower than a
-     tile, corners on the wrap seam, discs at the border), one launch of
-     each per extractor call, their times, the twins', the moment
-     convolutions' and the bounds; the stages' times and device events
-     beside those of the tensor-op stages before the kernels;
+     tests/test_torch_orb.py's bars; the levels ``orb_fast`` builds equal
+     the CPU's resize), each stage's graph replay bit for bit against its
+     eager call; the two ORB kernels (``orb_fast``, ``orb_describe``)
+     against their plain twins on the frame and its keypoints
+     (``orb_fast`` bit for bit at every level: the level
+     images, scores, survivors and counts; ``orb_describe`` level 0
+     exact, angles and bits, the other levels' angles within 1e-4 rad and
+     >= 0.999 of the bits) and at odd shapes (levels narrower than a tile,
+     a portrait frame, corners on the wrap seam, halos wrapped on both
+     axes and more than once; keypoints at the corners, 15 px from them,
+     padding slots), one launch of each per extractor call, their times,
+     the twins', the moment convolutions' and the bounds; the stages' times and device events beside those of the
+     stages that resized the levels themselves (commit 5e60de8);
      ``System(backend="orb").track_rgbd`` at the JAX package's ORB bars (14
      frames, loop closing off: < 1 cm max, < 5 mm median; 40 frames, loop
      closing on, twice, counted: every frame OK, < 3 cm, >= 3 keyframes,
@@ -277,20 +280,28 @@ ORB_SLAM_KERNELS = {"pose_lm": None, "local_ba": None, "orb_fast": None,
 # NVIDIA H100 80GB HBM3 at 700 W): candidates ms and device events,
 # describe ms and device events
 TENSOR_OPS_CANDIDATES, TENSOR_OPS_DESCRIBE = (4.9074, 1857), (3.8532, 435)
-# the same stages by replay with the two ORB kernels and the levels
-# resized by F.interpolate(antialias=True), before the resize took JAX's
-# weights and order (PERF.md, PR 10's chip runs 3-6 on NVIDIA H100 80GB
-# HBM3 at 700 W): ms ranges
-PR10_CANDIDATES_MS, PR10_DESCRIBE_MS = (1.35, 1.52), (0.377, 0.380)
+# the same stages by replay at commit 5e60de8, each stage resizing the
+# levels with JAX's weights and order (a kernel a tap) before its ORB
+# kernel and the describe stage blurring them by cuDNN (PERF.md, on NVIDIA
+# H100 80GB HBM3 at 700 W): ms and device events
+RESIZING_CANDIDATES, RESIZING_DESCRIBE = (1.6695, 592), (0.6857, 122)
+# the card's float64 rate outside the tensor cores (NVIDIA H100 SXM data
+# sheet, 700 W), for the resize's and the blur's float64 sums
+PEAK_F64_FLOPS = 34e12
 # float ops of the ORB kernels, counted from the algorithm at its least:
-# orb_fast per pixel 16 differences and absolutes, then per threshold
-# p +- t, 32 compares, 16 adds, the two run-of-9 tests (~36), the select,
-# 8 suppression compares and the border (~99 each); orb_describe per
-# distinct keypoint position the 709-pixel disc (3 each), the 31 row
-# products and per bit two rotated points (4 products, 2 sums, 2 roundings,
-# 2 offsets, 4 clamps) and the compare and scale
+# orb_fast per level pixel 16 differences and absolutes, then per
+# threshold p +- t, 32 compares, 16 adds, the two run-of-9 tests (~36),
+# the select, 8 suppression compares and the border (~99 each), float32;
+# and the resize's taps, a float64 multiply and add each (orb_fast_work);
+# orb_describe per distinct keypoint position the 709-pixel disc's moments
+# (3 float64 ops a pixel), per valid slot the rotation of each distinct
+# sample (4 products, 2 sums, 2 roundings, 2 offsets, 4 clamps) and the
+# 256 compares, float32, and the 7x7 blur at each distinct sample position
+# after the rotation (49 float64 multiply-adds, 98 ops; orb_describe_work)
 ORB_FAST_OPS_PER_PIXEL = 230
-ORB_DESCRIBE_OPS_PER_SLOT = 9800
+ORB_DESCRIBE_OPS_PER_SAMPLE = 14
+ORB_DISC_OPS_PER_POSITION = 3 * 709
+ORB_BLUR_OPS_PER_SAMPLE = 98
 # the stereo phases: the JAX package's TestStereoSlam rig (the rendered
 # room, the right view 8 cm along +x) and frame counts, and its bars
 STEREO_BASELINE, STEREO_FRAMES, ORB_STEREO_FRAMES = 0.08, 10, 8
@@ -418,11 +429,12 @@ def graph_ms(fn, calls=20, replays=10):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def bound_ms(nbytes, flops):
-    """The least time for the work: bytes over HBM rate or float32 ops over
-    the CUDA-core peak, whichever is larger."""
+def bound_ms(nbytes, flops, flops64=0):
+    """The least time for the work: bytes over HBM rate or the operations
+    (float32 ops over the CUDA-core peak plus float64 ops over the float64
+    peak), whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + flops64 / PEAK_F64_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2242,127 +2254,192 @@ def _mask_jaccard(a, b):
     return float((a & b).sum() / max((a | b).sum(), 1))
 
 
+def _orb_fast_equal(ck, img0, sizes, edge):
+    """``orb_fast`` against its plain twin on ``img0``: (every level's
+    image, scores and masked maps equal bit for bit, the counts equal), the
+    kernel's outputs."""
+    out = ck.orb_fast(img0, sizes, 20.0, 7.0, edge)
+    ref = ck.orb_fast_plain(img0, sizes, 20.0, 7.0, edge)
+    torch.cuda.synchronize()
+    lk, lp = ck.level_views(out[0], sizes), ck.level_views(ref[0], sizes)
+    same = [torch.equal(lk[i], lp[i]) and torch.equal(out[1][i], ref[1][i])
+            and torch.equal(out[2][i], ref[2][i]) for i in range(len(sizes))]
+    return same, torch.equal(out[3], ref[3]), out
+
+
 def orb_odd_shape_checks(ck, orb, dev):
     """The two ORB kernels against their twins where their indexing is
-    hardest, on integer images (so exactly): a level narrower than one
-    32x16 tile, a corner on the wrap seam (a bright blob at x=1 whose
-    circle wraps to the right edge, one at the image's corner), and
-    keypoints whose radius-15 disc touches or leaves the image (at the
-    corners, 15 px from the borders, on the last row and column)."""
+    hardest: levels narrower than a tile (a 40x24 frame), a portrait frame whose levels resize W first
+    (72x40), integer corners on the wrap seam of a 64x80 frame (a bright
+    blob at x=1 whose circle wraps to the right edge, one at the frame's
+    corner) and its resized levels, whose tiles' halos wrap on both axes,
+    and levels smaller than the halo (7x5, wrapped more than once); then
+    ``orb_describe`` on a frame and one resized level with keypoints at the
+    corners, 15 px from them, on the last row and column, and padding
+    slots (flag off, keypoint (0, 0)), and on the same levels less 128
+    (negative pixels: every pair from the float64 blur)."""
     rng = np.random.default_rng(5)
-    narrow = rng.integers(0, 256, (40, 24)).astype(np.float32)
     seam = np.full((64, 80), 40.0, np.float32)
     for y, x in ((32, 1), (0, 0), (63, 79), (20, 78)):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
                 seam[(y + dy) % 64, (x + dx) % 80] = 220.0
-    tiny = rng.integers(0, 256, (5, 7)).astype(np.float32)
-    levels = [torch.from_numpy(a).to(dev) for a in (narrow, seam, tiny)]
-    sk, mk, ckn = ck.orb_fast(levels, 20.0, 7.0, 2)
-    sp, mp, cp = ck.orb_fast_plain(levels, 20.0, 7.0, 2)
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(sk + mk, sp + mp))
-    seam_corners = int((mk[1][0] >= 0).sum())
-    print(f"orb_fast odd shapes (40x24 narrower than a tile, 64x80 with "
-          f"corners on the wrap seam, 5x7): scores and survivors equal to "
-          f"the plain twin {same}, counts {ckn.tolist()} (plain "
-          f"{cp.tolist()}); seam image corners at t0 "
-          f"{int((sk[1][0] > 0).sum())}, survivors {seam_corners}")
-    check(same and torch.equal(ckn, cp),
-          "orb_fast differs from its plain twin at odd shapes")
+    cases = {
+        "40x24": (rng.integers(0, 256, (40, 24)), [(40, 24), (33, 20),
+                                                    (28, 17)]),
+        "72x40 (W first)": (rng.integers(0, 256, (72, 40)),
+                            [(72, 40), (60, 33), (50, 28)]),
+        "64x80 seam": (seam, [(64, 80), (53, 67), (44, 56)]),
+        "7x5": (rng.integers(0, 256, (7, 5)), [(7, 5), (6, 4), (5, 3)]),
+    }
+    bad = []
+    for name, (img, sizes) in cases.items():
+        x0 = torch.from_numpy(np.asarray(img, np.float32)).to(dev)
+        same, counts, out = _orb_fast_equal(ck, x0, sizes, 2)
+        if not (all(same) and counts):
+            bad.append((name, same, counts))
+        if name == "64x80 seam":
+            seam_out = out
+    print(f"orb_fast odd shapes ({', '.join(cases)}; {ck.ORB_FAST_TILE} "
+          f"tiles): levels, scores, survivors "
+          f"and counts equal to the plain twin except {bad}; seam frame "
+          f"corners at t1 {int((seam_out[1][0][1] > 0).sum())}, survivors "
+          f"{int((seam_out[2][0][1] >= 0).sum())}")
+    check(not bad, "orb_fast differs from its plain twin at odd shapes")
     img = torch.from_numpy(rng.integers(0, 256, (64, 80)).astype(
         np.float32)).to(dev)
-    kp = torch.tensor([[0.0, 0.0], [15.0, 15.0], [79.0, 63.0], [15.9, 40.2],
-                       [64.0, 15.0], [64.99, 48.99], [40.0, 0.0],
-                       [0.0, 32.5], [-3.0, 70.0]], device=dev)
-    va = torch.ones(kp.shape[0], dtype=torch.bool, device=dev)
-    va[-1] = False
-    pat = torch.from_numpy(orb._PATTERN.astype(np.float32)).to(dev)
-    (dk, ak), = ck.orb_describe([img], [orb.blur7(img)], [kp], [va], pat)
-    (dp, ap), = ck.orb_describe_plain([img], [orb.blur7(img)], [kp], [va],
-                                      pat)
-    torch.cuda.synchronize()
-    same = torch.equal(ak, ap) and torch.equal(dk, dp)
-    print(f"orb_describe odd keypoints (disc at the corners, 15 px from the "
-          f"border, on the last row and column, one invalid): angles and "
-          f"bits equal to the plain twin {same}; max angle gap "
-          f"{float((ak - ap).abs().max()):.3e}")
-    check(same, "orb_describe differs from its plain twin at odd keypoints")
+    lv, _, _, _ = ck.orb_fast(img, [(64, 80), (53, 67)], 20.0, 7.0, 2)
+    levels = ck.level_views(lv, [(64, 80), (53, 67)])
+    kps, vas = [], []
+    for h, w in ((64, 80), (53, 67)):
+        kps.append(torch.tensor(
+            [[0.0, 0.0], [w - 1.0, h - 1.0], [15.0, 15.0],
+             [w - 16.0, h - 16.0], [15.9, h / 2 + 0.2], [w - 1.0, 15.0],
+             [w / 2 + 0.99, h - 1.0], [0.0, h - 1.0], [-3.0, h + 4.0],
+             [0.0, 0.0], [0.0, 0.0]], device=dev))
+        va = torch.ones(kps[-1].shape[0], dtype=torch.bool, device=dev)
+        va[-3:] = False
+        vas.append(va)
+    # the same keypoints on levels shifted below 0, whose pairs all take
+    # the kernel's float64 blur
+    for label, lv_in in (("", levels), (", levels - 128", [
+            (x - 128.0).contiguous() for x in levels])):
+        dk = ck.orb_describe(lv_in, kps, vas)
+        dp = ck.orb_describe_plain(lv_in, kps, vas)
+        torch.cuda.synchronize()
+        l0 = (torch.equal(dk[0][1], dp[0][1])
+              and torch.equal(dk[0][0], dp[0][0]))
+        gap = float((dk[1][1] - dp[1][1]).abs().max())
+        bits = float((dk[1][0] == dp[1][0]).float().mean())
+        print(f"orb_describe odd keypoints{label} (at the corners, 15 px "
+              f"from them, on the last row and column, outside the level, "
+              f"three padding slots): level 0 angles and bits equal to the "
+              f"plain twin {l0}; resized level max angle gap {gap:.3e}, "
+              f"bits equal {bits}")
+        check(l0 and gap <= 1e-4 and bits >= 0.999,
+              f"orb_describe differs from its plain twin at odd "
+              f"keypoints{label}")
 
 
-def orb_describe_work(orb, sizes, kp_d, angles, pattern):
-    """(bytes, distinct positions) that ``orb_describe`` must move on this
-    run's keypoints: per level the union of the in-level disc pixels over
-    the distinct integer keypoint positions (the padding slots share one)
-    and the union of the blurred samples that the rotated pattern reads,
-    4 bytes each; per slot its keypoint (8), flag (1), bits (1024) and
-    angle (4); the pattern once."""
+def orb_fast_work(ck, H0, W0, sizes):
+    """(bytes, float32 ops, float64 ops) of ``orb_fast`` on one frame: the
+    frame read once, each level pixel's image, scores and masked values
+    written once (20 B) and the counts; ORB_FAST_OPS_PER_PIXEL per level
+    pixel; and the resize's taps (``image.resize_bilinear``'s: the first
+    axis over the frame's other axis, the second over the level), a
+    multiply and an add each."""
+    from xfeatslam_tpu_torch.ops import image
+
+    npx = sum(h * w for h, w in sizes)
+    taps = 0
+    for h, w in sizes[1:]:
+        th = int(ck.orb_axis_arrays(H0, h)[1].sum())  # taps over all rows
+        tw = int(ck.orb_axis_arrays(W0, w)[1].sum())
+        taps += (th * W0 + tw * h if image.resize_h_first(H0, W0, h, w)
+                 else tw * H0 + th * w)
+    return (H0 * W0 * 4 + npx * 20 + 4 * len(sizes),
+            ORB_FAST_OPS_PER_PIXEL * npx, 2 * taps)
+
+
+def orb_describe_work(orb, sizes, kp_d, va_d, angles, pattern):
+    """(bytes, float32 ops, float64 ops, distinct positions) that
+    ``orb_describe`` must do on this run's keypoints: per level the union
+    of the in-level pixels it reads, the discs at the distinct integer
+    keypoint positions (the padding slots share one) and the 7x7 windows
+    at the distinct rotated sample positions of the valid slots, 4 bytes
+    each; per slot its keypoint (8), flag (1), bits (1024) and angle (4);
+    the pattern once. The operations: the disc's moments per distinct
+    position, and per valid slot the rotation of each distinct pattern
+    point and the blur at each distinct sample position (the samples that
+    coincide after the rotation blurred once)."""
     mask, dxs, dys = orb._circle_mask(orb.PATCH_RADIUS)
     on = mask > 0
-    dx = torch.as_tensor(dxs[on], device=pattern.device)
-    dy = torch.as_tensor(dys[on], device=pattern.device)
-    nbytes, n_pos = pattern.numel() * 4, 0
-    for (h, w), k, a in zip(sizes, kp_d, angles):
+    dev = pattern.device
+    dx = torch.as_tensor(dxs[on], device=dev)
+    dy = torch.as_tensor(dys[on], device=dev)
+    wy, wx = (torch.as_tensor(a.reshape(-1), device=dev)
+              for a in np.mgrid[-3:4, -3:4])
+    pts = torch.unique(pattern.reshape(-1, 2), dim=0)
+    nbytes, n_pos, f32, f64 = pattern.numel() * 4, 0, 0, 0
+    for (h, w), k, v, a in zip(sizes, kp_d, va_d, angles):
         if k.shape[0] == 0:
             continue
-        xi = k[:, 0].to(torch.int32).clamp(0, w - 1)
-        yi = k[:, 1].to(torch.int32).clamp(0, h - 1)
-        pos = torch.unique(yi.long() * w + xi.long())
+        xi = k[:, 0].to(torch.int32).clamp(0, w - 1).long()
+        yi = k[:, 1].to(torch.int32).clamp(0, h - 1).long()
+        pos = torch.unique(yi * w + xi)
         px, py = pos % w, pos // w
         gx, gy = px[:, None] + dx[None], py[:, None] + dy[None]
         inside = (gx >= 0) & (gx < w) & (gy >= 0) & (gy < h)
-        disc = torch.unique((gy * w + gx)[inside]).numel()
-        ca, sa = torch.cos(a)[:, None], torch.sin(a)[:, None]
-        samples = []
-        for cx, cy in ((0, 1), (2, 3)):
-            qx, qy = pattern[None, :, cx], pattern[None, :, cy]
-            sx = (xi[:, None] + torch.round(ca * qx - sa * qy).to(
-                torch.int32)).clamp(0, w - 1)
-            sy = (yi[:, None] + torch.round(sa * qx + ca * qy).to(
-                torch.int32)).clamp(0, h - 1)
-            samples.append((sy.long() * w + sx.long()).reshape(-1))
-        blurred = torch.unique(torch.cat(samples)).numel()
-        nbytes += (disc + blurred) * 4 + k.shape[0] * (8 + 1 + 256 * 4 + 4)
+        read = [(gy * w + gx)[inside]]
+        ca, sa = torch.cos(a[v])[:, None], torch.sin(a[v])[:, None]
+        qx, qy = pts[None, :, 0], pts[None, :, 1]
+        sx = (xi[v][:, None] + torch.round(ca * qx - sa * qy).long()).clamp(
+            0, w - 1)
+        sy = (yi[v][:, None] + torch.round(sa * qx + ca * qy).long()).clamp(
+            0, h - 1)
+        samples = sy * w + sx  # (valid slots, distinct points)
+        srt = samples.sort(1).values
+        n_samples = int((srt[:, 1:] != srt[:, :-1]).sum()) + srt.shape[0]
+        uniq = torch.unique(samples)
+        ux, uy = uniq % w, uniq // w
+        bx, by = ux[:, None] + wx[None], uy[:, None] + wy[None]
+        inb = (bx >= 0) & (bx < w) & (by >= 0) & (by < h)
+        read.append((by * w + bx)[inb])
+        nbytes += torch.unique(torch.cat(read)).numel() * 4
+        nbytes += k.shape[0] * (8 + 1 + 256 * 4 + 4)
         n_pos += pos.numel()
-    return nbytes, n_pos
+        f64 += ORB_DISC_OPS_PER_POSITION * pos.numel()
+        f64 += ORB_BLUR_OPS_PER_SAMPLE * n_samples
+        f32 += int(v.sum()) * (ORB_DESCRIBE_OPS_PER_SAMPLE * len(pts) + 256)
+    return nbytes, f32, f64, n_pos
 
 
 def orb_kernel_checks(ck, orb, x_dev, sizes, kp_d, va_d):
     """``csrc/orb_fast.cu`` and ``csrc/orb_describe.cu`` against their
-    plain twins on the card, on the levels of one 640x480 frame and the
-    extractor's keypoints: level 0 exact for both (scores, survivors and
-    counts; angles and bits); the other levels' survivors by Jaccard >=
-    0.999, angles within 1e-4 rad, >= 0.999 of the bits; then the odd
-    shapes; then each kernel's times (CUDA events, device by graph replay),
-    the twin's, the moment convolutions' (the library call for
-    orb_describe) and the bounds. Returns the two kernels' rows."""
+    plain twins on the card, on one 640x480 frame and the extractor's
+    keypoints: ``orb_fast`` bit for bit at every level (the level images,
+    which must be ``image.resize_bilinear``'s, the scores, the masked maps
+    and the counts); ``orb_describe`` on the
+    kernel's levels, level 0 exact (angles and bits), the other levels'
+    angles within 1e-4 rad and >= 0.999 of the bits; then the odd shapes;
+    then each kernel's times (CUDA events, device by graph replay), the
+    twin's, the moment convolutions' (the library call for orb_describe)
+    and the bounds. Returns the two
+    kernels' rows."""
     dev = x_dev.device
-    levels = [orb._level_image(x_dev, lvl, h, w)
-              for lvl, (h, w) in enumerate(sizes)]
     thr = (20.0, 7.0)
-    sk, mk, ckn = ck.orb_fast(levels, *thr, orb.EDGE)
-    sp, mp, cp = ck.orb_fast_plain(levels, *thr, orb.EDGE)
-    torch.cuda.synchronize()
-    l0 = torch.equal(sk[0], sp[0]) and torch.equal(mk[0], mp[0])
-    jac = [min(_mask_jaccard(a[t], b[t]) for t in range(2))
-           for a, b in zip(mk, mp)]
-    equal_levels = [lvl for lvl in range(len(sizes))
-                    if torch.equal(sk[lvl], sp[lvl])
-                    and torch.equal(mk[lvl], mp[lvl])]
-    fast_err = max(float((a - b).abs().max()) for a, b in zip(sk, sp))
-    print(f"orb_fast against its plain twin ({len(sizes)} levels, one "
-          f"launch): level 0 scores and survivors equal {l0}, levels equal "
-          f"bit for bit {equal_levels}, survivor Jaccard per level {jac}, "
-          f"max |score - plain| {fast_err:.3e}; counts {ckn.tolist()} "
-          f"(plain {cp.tolist()})")
-    check(l0 and int(ckn[0]) == int(cp[0]),
-          "orb_fast: level 0 differs from its plain twin")
-    check(min(jac) >= 0.999, "orb_fast: survivors part from the plain twin")
-    pat = orb._constant("pattern", dev, lambda: orb._PATTERN.astype(
-        np.float32))
-    blur = [orb.blur7(x) for x in levels]
-    dk = ck.orb_describe(levels, blur, kp_d, va_d, pat)
-    dp = ck.orb_describe_plain(levels, blur, kp_d, va_d, pat)
+    H0, W0 = x_dev.shape
+    same, counts, out = _orb_fast_equal(ck, x_dev, sizes, orb.EDGE)
+    lv, sk = out[0], out[1]
+    ref = ck.orb_fast_plain(x_dev, sizes, *thr, orb.EDGE)
+    fast_err = max(float((a - b).abs().max()) for a, b in zip(sk, ref[1]))
+    print(f"orb_fast against its plain twin ({len(sizes)} levels built from "
+          f"the frame, one launch): levels, scores and survivors equal per "
+          f"level {same}, counts equal {counts}; counts {ref[3].tolist()}")
+    check(all(same) and counts, "orb_fast differs from its plain twin")
+    levels = ck.level_views(lv, sizes)
+    dk = ck.orb_describe(levels, kp_d, va_d)
+    dp = ck.orb_describe_plain(levels, kp_d, va_d)
     torch.cuda.synchronize()
     gaps = [float((a[1] - b[1]).abs().max()) if a[1].numel() else 0.0
             for a, b in zip(dk, dp)]
@@ -2370,26 +2447,26 @@ def orb_kernel_checks(ck, orb, x_dev, sizes, kp_d, va_d):
             for a, b in zip(dk, dp)]
     l0 = torch.equal(dk[0][1], dp[0][1]) and torch.equal(dk[0][0], dp[0][0])
     print(f"orb_describe against its plain twin ({sum(k.shape[0] for k in kp_d)}"
-          f" keypoint slots, one launch): level 0 angles and bits equal {l0}; "
-          f"max angle gap per level {[f'{g:.3e}' for g in gaps]}, bits equal "
-          f"per level {bits}")
+          f" keypoint slots, one launch, from orb_fast's levels): level 0 "
+          f"angles and bits equal {l0}; max angle gap per level "
+          f"{[f'{g:.3e}' for g in gaps]}, bits equal per level {bits}")
     check(l0, "orb_describe: level 0 differs from its plain twin")
     check(max(gaps) <= 1e-4 and min(bits) >= 0.999,
           "orb_describe: angles or bits part from the plain twin")
     orb_odd_shape_checks(ck, orb, dev)
 
-    fast = lambda: ck.orb_fast(levels, *thr, orb.EDGE)  # noqa: E731
-    desc = lambda: ck.orb_describe(levels, blur, kp_d, va_d, pat)  # noqa: E731
+    fast = lambda: ck.orb_fast(x_dev, sizes, *thr, orb.EDGE)  # noqa: E731
+    desc = lambda: ck.orb_describe(levels, kp_d, va_d)  # noqa: E731
     times = {
         "orb_fast_ms": cuda_ms(fast),
         "orb_fast_device_ms": graph_ms(fast),
         "orb_fast_plain_ms": cuda_ms(
-            lambda: ck.orb_fast_plain(levels, *thr, orb.EDGE), iters=5,
+            lambda: ck.orb_fast_plain(x_dev, sizes, *thr, orb.EDGE), iters=5,
             warmup=1),
         "orb_describe_ms": cuda_ms(desc),
         "orb_describe_device_ms": graph_ms(desc),
         "orb_describe_plain_ms": cuda_ms(
-            lambda: ck.orb_describe_plain(levels, blur, kp_d, va_d, pat),
+            lambda: ck.orb_describe_plain(levels, kp_d, va_d),
             iters=5, warmup=1),
         # the two 31x31 moment convolutions per level, which compute the
         # same moments at every pixel
@@ -2397,17 +2474,19 @@ def orb_kernel_checks(ck, orb, x_dev, sizes, kp_d, va_d):
             lambda: [orb.orientation_maps(x) for x in levels], iters=5,
             warmup=1),
     }
-    npx = sum(h * w for h, w in sizes)
-    desc_bytes, n_pos = orb_describe_work(orb, sizes, kp_d,
-                                          [a[1] for a in dk], pat)
+    fast_bytes, fast_f32, fast_f64 = orb_fast_work(ck, H0, W0, sizes)
+    desc_bytes, desc_f32, desc_f64, n_pos = orb_describe_work(
+        orb, sizes, kp_d, va_d, [a[1] for a in dk],
+        torch.from_numpy(orb._PATTERN.astype(np.float32)).to(dev))
     n_slots = sum(k.shape[0] for k in kp_d)
-    print(f"orb_describe's work on this frame: {n_slots} slots at {n_pos} "
-          f"distinct positions, {desc_bytes} bytes")
+    print(f"orb kernels' work on this frame: orb_fast {fast_bytes} bytes, "
+          f"{fast_f32} float32 and {fast_f64} float64 ops (the resize's "
+          f"taps); orb_describe {n_slots} slots at {n_pos} distinct "
+          f"positions, {desc_bytes} bytes, {desc_f32} float32 and "
+          f"{desc_f64} float64 ops")
     bounds = {
-        "orb_fast": bound_ms(npx * (4 + 16) + 4 * len(sizes),
-                             ORB_FAST_OPS_PER_PIXEL * npx),
-        "orb_describe": bound_ms(desc_bytes,
-                                 ORB_DESCRIBE_OPS_PER_SLOT * n_pos),
+        "orb_fast": bound_ms(fast_bytes, fast_f32, fast_f64),
+        "orb_describe": bound_ms(desc_bytes, desc_f32, desc_f64),
     }
     print("orb kernel timings (640x480, 1000 features; CUDA events, device "
           "alone by graph replay): " + json.dumps(
@@ -2432,14 +2511,16 @@ def orb_extractor_phase(ck):
     rendered 640x480 frame (tests/test_torch_orb.py's bars: level-0
     candidates and their quadtree selection equal, per-level keypoint
     Jaccard >= ORB_LEVEL_JACCARD, >= 99% of the shared keypoints'
-    descriptor bits; the resized levels equal bit for bit), each
-    stage's graph replay against the eager call on the card bit for bit,
-    the two kernels against their twins (``orb_kernel_checks``), one
-    launch of each per extractor call, and the stages' times: candidates
-    and describe by replay (CUDA events, with the stage's device events,
-    busy ms and costliest kernels from ``torch.profiler``, beside the
-    tensor-op stages' before the kernels), the quadtree on the host, the whole call. Returns
-    the timings and the kernels' rows."""
+    descriptor bits; the levels that ``orb_fast`` builds equal the CPU's
+    bit for bit), each stage's graph replay against the eager call on the
+    card bit for bit, the two kernels against their twins
+    (``orb_kernel_checks``), one launch of each per extractor call, and
+    the stages' times: candidates and describe by replay (CUDA events,
+    with the stage's device events, busy ms and costliest kernels from
+    ``torch.profiler``, beside those of commit 5e60de8, which resized the
+    levels in both stages and blurred them by cuDNN), the quadtree on the
+    host, the whole
+    call. Returns the timings and the kernels' rows."""
     from xfeatslam_tpu_torch import _build
     from xfeatslam_tpu_torch.models import orb
     from xfeatslam_tpu_torch.optim.track_step import fetch
@@ -2456,10 +2537,12 @@ def orb_extractor_phase(ck):
     thr = (card.ini_threshold, card.min_threshold)
     x_cpu = torch.from_numpy(img.astype(np.float32))
     x_dev = x_cpu.cuda()
-    rep = fetch(card.candidates(x_cpu, sizes, caps, mins))
-    eager = fetch(orb.orb_candidates(x_dev, sizes, caps, mins, *thr))
-    ref = [tuple(a.numpy() for a in lvl)
-           for lvl in orb.orb_candidates(x_cpu, sizes, caps, mins, *thr)]
+    rep, lv_rep = card.candidates(x_cpu, sizes, caps, mins)
+    rep, lv_dev = fetch(rep), lv_rep.clone()
+    eager, lv_eager = orb.orb_candidates(x_dev, sizes, caps, mins, *thr)
+    eager = fetch(eager)
+    ref, lv_ref = orb.orb_candidates(x_cpu, sizes, caps, mins, *thr)
+    ref = [tuple(a.numpy() for a in lvl) for lvl in ref]
     check(all(np.array_equal(a, b) for la, lb in zip(rep, eager)
               for a, b in zip(la, lb)),
           "orb: the candidates' replay differs from the eager call")
@@ -2469,13 +2552,14 @@ def orb_extractor_phase(ck):
     jac = [round(jaccard(pixel_set(rep[lvl][0], rep[lvl][2]),
                          pixel_set(ref[lvl][0], ref[lvl][2])), 4)
            for lvl in range(len(sizes))]
-    # the resized levels, card against CPU: the same weights and the same
-    # exactly rounded float64 chain on both, so the same bits
-    level_gap = [float((orb._level_image(x_dev, lvl, h, w).cpu()
-                        - orb._level_image(x_cpu, lvl, h, w)).abs().max())
-                 for lvl, (h, w) in enumerate(sizes)]
-    check(max(level_gap) == 0.0, "orb: the card's resized levels differ "
-          f"from the CPU's by up to {max(level_gap)}")
+    # the levels orb_fast built on the card against the CPU's resize: the
+    # same weights and the same exactly rounded float64 chain, so the same
+    # bits (by replay and eagerly)
+    level_gap = [float((a.cpu() - b).abs().max()) for a, b in zip(
+        ck.level_views(lv_dev, sizes), ck.level_views(lv_ref, sizes))]
+    check(max(level_gap) == 0.0 and torch.equal(lv_dev, lv_eager),
+          "orb: the card's levels differ from the CPU's by up to "
+          f"{max(level_gap)}, or the replay's from the eager call's")
     kp_c, va_c, keep_c = card.select(rep, sizes)
     kp_r, va_r, _ = cpu.select(ref, sizes)
     check(np.array_equal(kp_c[0].numpy(), kp_r[0].numpy())
@@ -2483,8 +2567,8 @@ def orb_extractor_phase(ck):
           "orb: the level-0 quadtree selection differs from the CPU's")
     kp_d = [k.cuda() for k in kp_c]
     va_d = [v.cuda() for v in va_c]
-    d_rep = fetch(card.descriptors(x_dev, sizes, kp_d, va_d))
-    d_eager = fetch(orb.orb_describe_all(x_dev, sizes, kp_d, va_d))
+    d_rep = fetch(card.descriptors(lv_dev, sizes, kp_d, va_d))
+    d_eager = fetch(orb.orb_describe_all(lv_dev, sizes, kp_d, va_d))
     check(all(np.array_equal(a, b) for la, lb in zip(d_rep, d_eager)
               for a, b in zip(la, lb)),
           "orb: the descriptors' replay differs from the eager call")
@@ -2534,7 +2618,7 @@ def orb_extractor_phase(ck):
     ev_c, busy_c, top_c = stage_events(
         lambda: card.candidates(x_dev, sizes, caps, mins))
     ev_d, busy_d, top_d = stage_events(
-        lambda: card.descriptors(x_dev, sizes, kp_d, va_d))
+        lambda: card.descriptors(lv_dev, sizes, kp_d, va_d))
     report = {
         "candidates_replay_ms": round(cuda_ms(
             lambda: card.candidates(x_dev, sizes, caps, mins)), 4),
@@ -2547,12 +2631,12 @@ def orb_extractor_phase(ck):
         "quadtree_host_ms": round(float(np.median([qt() for _ in range(20)])),
                                   4),
         "describe_replay_ms": round(cuda_ms(
-            lambda: card.descriptors(x_dev, sizes, kp_d, va_d)), 4),
+            lambda: card.descriptors(lv_dev, sizes, kp_d, va_d)), 4),
         "describe_device_events": ev_d,
         "describe_device_busy_ms": round(busy_d, 4),
         "describe_top_kernels": top_d,
         "describe_eager_ms": round(cuda_ms(
-            lambda: orb.orb_describe_all(x_dev, sizes, kp_d, va_d),
+            lambda: orb.orb_describe_all(lv_dev, sizes, kp_d, va_d),
             iters=5, warmup=1), 4),
         "extractor_call_wall_ms": round(float(np.median(
             [whole() for _ in range(20)])), 4),
@@ -2562,16 +2646,16 @@ def orb_extractor_phase(ck):
     print(f"orb extractor timings ({W}x{H}, K={K}; CUDA events, "
           "host wall for the quadtree and the whole call): "
           + json.dumps(report))
-    print(f"orb stages by replay, kernels against the tensor ops before "
-          f"them: candidates {report['candidates_replay_ms']} ms in "
-          f"{ev_c} device events (tensor ops: {TENSOR_OPS_CANDIDATES[0]} ms, "
+    print(f"orb stages by replay: candidates {report['candidates_replay_ms']}"
+          f" ms in {ev_c} device events (the levels resized in the stage: "
+          f"{RESIZING_CANDIDATES[0]} ms, {RESIZING_CANDIDATES[1]} events; "
+          f"tensor ops before the kernels: {TENSOR_OPS_CANDIDATES[0]} ms, "
           f"{TENSOR_OPS_CANDIDATES[1]} events); describe "
-          f"{report['describe_replay_ms']} ms in {ev_d} device events "
-          f"(tensor ops: {TENSOR_OPS_DESCRIBE[0]} ms, "
-          f"{TENSOR_OPS_DESCRIBE[1]} events); PR 10's kernels with the "
-          f"F.interpolate resize: candidates {PR10_CANDIDATES_MS[0]}-"
-          f"{PR10_CANDIDATES_MS[1]} ms, describe {PR10_DESCRIBE_MS[0]}-"
-          f"{PR10_DESCRIBE_MS[1]} ms")
+          f"{report['describe_replay_ms']} ms in {ev_d} device events (the "
+          f"levels resized and blurred in the stage: "
+          f"{RESIZING_DESCRIBE[0]} ms, {RESIZING_DESCRIBE[1]} events; tensor "
+          f"ops: "
+          f"{TENSOR_OPS_DESCRIBE[0]} ms, {TENSOR_OPS_DESCRIBE[1]} events)")
     return report, rows
 
 

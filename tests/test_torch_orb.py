@@ -80,7 +80,7 @@ def case(request):
         jnp.asarray(x), sizes, caps, mins, jnp.float32(20.0),
         jnp.float32(7.0))]
     tc = [tuple(a.numpy() for a in lvl) for lvl in to.orb_candidates(
-        torch.from_numpy(x), sizes, caps, mins, 20.0, 7.0)]
+        torch.from_numpy(x), sizes, caps, mins, 20.0, 7.0)[0]]
     return {"name": request.param, "img": img, "x": x, "sizes": sizes,
             "jax_cands": jc, "port_cands": tc,
             "jax_out": jo.ORBExtractor(nfeatures=N_FEATURES)(img),

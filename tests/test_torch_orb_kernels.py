@@ -2,8 +2,12 @@
 and ``orb_describe_plain``, which the CPU runs and ``chip_smoke.py`` holds
 ``csrc/orb_fast.cu`` and ``csrc/orb_describe.cu`` to on the card) against
 the JAX package's ``fast_score_map`` / ``nms3_mask`` and
-``orientation_maps`` / ``describe``, on levels 0-2 of a rendered 384x288
-frame (each level image the port's, handed to both packages).
+``orientation_maps`` / ``blur7`` / ``describe``, on levels 0-2 of a
+rendered 384x288 frame (each level image the port's, handed to both
+packages). ``orb_fast`` takes the level-0 image and the level sizes and
+returns the levels as one flat buffer (equal to ``models/orb._level_image``
+here); ``orb_describe`` takes the level images, keypoints, flags and the
+pattern, and blurs at the samples itself.
 
 Bars: level 0 exact (integer pixels: FAST scores, survivors, counts; the
 angles within 5e-7 rad, an ulp of atan2 between XLA and torch on equal
@@ -52,10 +56,10 @@ def levels():
     ex = to.ORBExtractor(nfeatures=1000, device="cpu")
     sizes = ex.geometry(*img.shape)[0][:LEVELS]
     x0 = torch.from_numpy(img.astype(np.float32))
-    xs = [to._level_image(x0, lvl, h, w) for lvl, (h, w) in enumerate(sizes)]
     ck.reset_launch_counts()
-    scores, masked, counts = ck.orb_fast(xs, *THR, to.EDGE)
+    flat, scores, masked, counts = ck.orb_fast(x0, sizes, *THR, to.EDGE)
     launches = ck.launch_counts()
+    xs = ck.level_views(flat, sizes)
     jax_out = []
     for x in xs:
         h, w = x.shape
@@ -66,15 +70,21 @@ def levels():
                & (xx < w - jo.EDGE))
         m = [np.asarray(jo.nms3_mask(jnp.asarray(si))) & inb for si in s]
         jax_out.append((np.stack(s), np.stack(m)))
-    return dict(xs=xs, scores=scores, masked=masked, counts=counts,
-                jax=jax_out, launches=launches)
+    return dict(x0=x0, sizes=sizes, xs=xs, scores=scores, masked=masked,
+                counts=counts, jax=jax_out, launches=launches)
 
 
 def test_wrapper_on_cpu_runs_the_twin(levels):
     assert set(levels["launches"].values()) == {0}
-    xs = levels["xs"]
-    s, m, c = ck.orb_fast_plain(xs, *THR, to.EDGE)
-    for a, b in zip(s + m, levels["scores"] + levels["masked"]):
+    xs, x0, sizes = levels["xs"], levels["x0"], levels["sizes"]
+    # the levels: level 0 the image, the others resize_bilinear's
+    for lvl, (h, w) in enumerate(sizes):
+        np.testing.assert_array_equal(
+            xs[lvl].numpy(), to._level_image(x0, lvl, h, w).numpy())
+    f, s, m, c = ck.orb_fast_plain(x0, sizes, *THR, to.EDGE)
+    for a, b in zip([f] + s + m,
+                    [torch.cat([x.reshape(-1) for x in xs])]
+                    + levels["scores"] + levels["masked"]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert c.dtype == torch.int32 and c.shape == (LEVELS,)
     for lvl, (sc, mk) in enumerate(zip(levels["scores"], levels["masked"])):
@@ -112,8 +122,9 @@ def _describe_case(levels, lvl):
     kp = np.stack([xs_, ys], -1)[:300].astype(np.float32) + 0.3
     valid = np.arange(len(kp)) % 7 != 3
     xt, kt, vt = x, torch.from_numpy(kp), torch.from_numpy(valid)
-    pat = torch.from_numpy(to._PATTERN.astype(np.float32))
-    (desc, ang), = ck.orb_describe([xt], [to.blur7(xt)], [kt], [vt], pat)
+    ck.reset_launch_counts()
+    (desc, ang), = ck.orb_describe([xt], [kt], [vt])
+    assert set(ck.launch_counts().values()) == {0}
     xj = jnp.asarray(x.numpy())
     m10, m01 = jo.orientation_maps(xj)
     jd, ja = jo.describe(jo.blur7(xj), m10, m01, jnp.asarray(kp),

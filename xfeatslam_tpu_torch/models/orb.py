@@ -9,18 +9,20 @@ are (256,) float 0/1 vectors, so the matchers' squared L2 is the Hamming
 distance.
 
 Two device stages per frame, as in the JAX package, with one host read
-between them: ``orb_candidates`` (every level resized, then one launch of
-the ``orb_fast`` kernel for FAST at both thresholds, suppression and the
-border on all levels, then the threshold select, the top-k and sub-pixel
-offsets) and, after the quadtree has picked each level's keypoints on the
-host, ``orb_describe_all`` (each level resized and blurred, then one
-launch of the ``orb_describe`` kernel for the moments at the keypoints,
-the angles and the descriptors). The kernels are ``csrc/orb_fast.cu`` and
+between them: ``orb_candidates`` (one launch of the ``orb_fast`` kernel
+that resizes every level from the level-0 image, scores FAST at both
+thresholds, suppresses and masks the border, then the threshold select,
+the top-k and sub-pixel offsets) and, after the quadtree has picked each
+level's keypoints on the host, ``orb_describe_all`` (one launch of the
+``orb_describe`` kernel on the level images that ``orb_fast`` wrote: the
+moments at the keypoints, the angles, the blur at the samples and the
+descriptors). The kernels are ``csrc/orb_fast.cu`` and
 ``csrc/orb_describe.cu`` behind ``ops/cuda_kernels``; CPU tensors take
 their plain twins (``orb_fast_plain``, ``orb_describe_plain`` there),
-built from the functions below. On the card each stage
-is one CUDA graph (``track_step.CapturedCalls``), keyed on the image
-size, the level sizes, caps, pads and both thresholds.
+built from the functions below (the levels from ``_level_image``). On
+the card each stage is one CUDA graph (``track_step.CapturedCalls``),
+keyed on the image size, the level sizes, caps, pads and both
+thresholds.
 
 FAST's plain version vectorizes over the level: the 16 circle pixels are
 one stacked (16, H, W) tensor of slices of a circularly padded image (the
@@ -196,10 +198,15 @@ def orientation_maps(img):
 
 
 def blur7(img):
-    """7x7 Gaussian (sigma 2) of (H,W) ``img``, zero padding."""
-    k = _constant("gauss7", img.device, lambda: _gauss_kernel7()[None, None])
-    with _float32_convs():
-        return F.conv2d(img[None, None], k, padding=3)[0, 0]
+    """7x7 Gaussian (sigma 2, float32 weights) of (H,W) float32 ``img``,
+    zero padding: the float64 convolution of the float64 image, rounded
+    once to float32. The products are exact in float64, and at integer
+    pixels so is their sum, so this is the correctly rounded blur there
+    (the ``orb_describe`` kernel's value; the JAX package's float32
+    convolution is within its rounding)."""
+    k = _constant("gauss7", img.device,
+                  lambda: _gauss_kernel7()[None, None].astype(np.float64))
+    return F.conv2d(img.double()[None, None], k, padding=3)[0, 0].float()
 
 
 def describe(blurred, m10, m01, kpts, valid):
@@ -256,22 +263,22 @@ def orb_candidates(img0, sizes, caps, mins, ini_thr: float, min_thr: float):
     """Every pyramid level's FAST candidates with no host read.
 
     Each level is resized (antialiased bilinear, as ``jax.image.resize``),
-    FAST-scored at both thresholds, suppressed and border-masked; the
-    minimum threshold's map replaces the initial one where fewer than
-    ``mins[lvl]`` corners fire (a device select). The top ``caps[lvl]``
-    candidates get a 1-D quadratic sub-pixel offset on the response, all
-    levels' candidates in one pass.
+    FAST-scored at both thresholds, suppressed and border-masked (the
+    ``orb_fast`` kernel, one launch); the minimum threshold's map replaces
+    the initial one where fewer than ``mins[lvl]`` corners fire (a device
+    select). The top ``caps[lvl]`` candidates get a 1-D quadratic
+    sub-pixel offset on the response, all levels' candidates in one pass.
 
     Args:
       img0: (H0,W0) float32 level-0 image.
       sizes: (h, w) per level; caps: candidate cap per level; mins: fire
         count below which the minimum threshold is used.
-    Returns a list of (xy (cap,2) sub-pixel level coords, score (cap,),
-    valid (cap,)) per level."""
-    levels = [_level_image(img0, lvl, h, w)
-              for lvl, (h, w) in enumerate(sizes)]
+    Returns (a list of (xy (cap,2) sub-pixel level coords, score (cap,),
+    valid (cap,)) per level, the level images as one flat buffer for
+    ``orb_describe_all``)."""
     # both thresholds at once: [0] initial, [1] minimum
-    scores, masked, counts = ck.orb_fast(levels, ini_thr, min_thr, EDGE)
+    levels, scores, masked, counts = ck.orb_fast(img0, sizes, ini_thr,
+                                                 min_thr, EDGE)
     sel_scores, tops, idxs = [], [], []
     for lvl in range(len(sizes)):
         use_min = counts[lvl] < mins[lvl]
@@ -308,7 +315,8 @@ def orb_candidates(img0, sizes, caps, mins, ini_thr: float, min_thr: float):
                         0.0).clamp(-0.5, 0.5)
     xy = torch.stack([xs.to(torch.float32) + off_x,
                       ys.to(torch.float32) + off_y], -1)
-    return [(a, b, b > 0.0) for a, b in zip(xy.split(caps), top.split(caps))]
+    return ([(a, b, b > 0.0) for a, b in zip(xy.split(caps), top.split(caps))],
+            levels)
 
 
 def _candidate_tables(sizes, caps):
@@ -324,17 +332,13 @@ def _candidate_tables(sizes, caps):
             "base": per_slot(offsets)}
 
 
-def orb_describe_all(img0, sizes, kpts_list, valid_list):
-    """Oriented BRIEF for every level with no host read: each level
-    resized again (cheaper than keeping the images) and blurred, then the
-    ``orb_describe`` kernel's one launch for the moments at the keypoints,
-    the angles and the bits. Returns (desc, angle) per level."""
-    levels = [_level_image(img0, lvl, h, w)
-              for lvl, (h, w) in enumerate(sizes)]
-    pat = _constant("pattern", img0.device,
-                    lambda: _PATTERN.astype(np.float32))
-    return ck.orb_describe(levels, [blur7(x) for x in levels],
-                           list(kpts_list), list(valid_list), pat)
+def orb_describe_all(levels, sizes, kpts_list, valid_list):
+    """Oriented BRIEF for every level with no host read, from the flat
+    level buffer that ``orb_candidates`` returns: the ``orb_describe``
+    kernel's one launch for the moments at the keypoints, the angles, the
+    blur at the samples and the bits. Returns (desc, angle) per level."""
+    return ck.orb_describe(ck.level_views(levels, sizes), list(kpts_list),
+                           list(valid_list))
 
 
 def distribute_quadtree(kpts: np.ndarray, scores: np.ndarray, n_target: int,
@@ -417,7 +421,8 @@ class ORBExtractor:
 
     def candidates(self, x0, sizes, caps, mins):
         """The first stage: by graph replay on the card, eager elsewhere.
-        Returns its (device) outputs."""
+        Returns its (device) outputs: the candidates per level and the
+        flat level buffer (``orb_candidates``)."""
         ini, mn = float(self.ini_threshold), float(self.min_threshold)
 
         def run(img):
@@ -428,18 +433,19 @@ class ORBExtractor:
         return self._graphs[0].replay((sizes, caps, mins, ini, mn), (x0,),
                                       run)
 
-    def descriptors(self, x0, sizes, kpts, valid):
-        """The second stage (lists of per-level padded keypoints and their
-        masks): by graph replay on the card, eager elsewhere."""
+    def descriptors(self, levels, sizes, kpts, valid):
+        """The second stage (the flat level buffer from ``candidates``,
+        lists of per-level padded keypoints and their masks): by graph
+        replay on the card, eager elsewhere."""
         L = len(sizes)
 
-        def run(img, *kv):
-            return orb_describe_all(img, sizes, kv[:L], kv[L:])
+        def run(lv, *kv):
+            return orb_describe_all(lv, sizes, kv[:L], kv[L:])
 
         if self._graphs is None:
-            return run(x0, *kpts, *valid)
+            return run(levels, *kpts, *valid)
         pads = tuple(int(k.shape[0]) for k in kpts)
-        return self._graphs[1].replay((sizes, pads), (x0, *kpts, *valid),
+        return self._graphs[1].replay((sizes, pads), (levels, *kpts, *valid),
                                       run)
 
     def select(self, cands, sizes):
@@ -471,7 +477,8 @@ class ORBExtractor:
         """image: (H,W) uint8/float (or (H,W,C), averaged). Returns a numpy
         dict kpts/scores/desc/valid/octave/angle with kpts in level-0
         coordinates (leading batch dim 1): the candidates stage, one host
-        read, the quadtree per level, the descriptor stage, one host read."""
+        read (of the candidates; the level images stay on the device), the
+        quadtree per level, the descriptor stage, one host read."""
         from ..optim.track_step import fetch
 
         img0 = np.asarray(image, np.float32)
@@ -482,13 +489,14 @@ class ORBExtractor:
         x0 = torch.from_numpy(np.ascontiguousarray(img0))
         if self._graphs is None:
             x0 = x0.to(self.device)
-        cands = fetch(self.candidates(x0, sizes, caps, mins))
+        cands, levels = self.candidates(x0, sizes, caps, mins)
+        cands = fetch(cands)
 
         kp_pad, va_pad, keep = self.select(cands, sizes)
         if self._graphs is None:
             kp_pad = [k.to(self.device) for k in kp_pad]
             va_pad = [v.to(self.device) for v in va_pad]
-        desc_all = fetch(self.descriptors(x0, sizes, kp_pad, va_pad))
+        desc_all = fetch(self.descriptors(levels, sizes, kp_pad, va_pad))
 
         all_kpts, all_scores, all_desc, all_oct, all_ang = [], [], [], [], []
         for (lvl, xy, sc) in keep:

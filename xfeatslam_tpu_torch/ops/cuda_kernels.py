@@ -25,13 +25,13 @@ Kernels:
                         in one persistent cooperative launch in place of
                         ~3,300 small kernels per LM iteration)
   orb_fast              csrc/orb_fast.cu           (models/orb.py:93-131, XLA
-                        code in the JAX package: FAST at both thresholds,
-                        suppression and the border of every level in one
-                        launch)
+                        code in the JAX package: the pyramid, FAST at both
+                        thresholds, suppression and the border of every
+                        level in one launch from the level-0 image)
   orb_describe          csrc/orb_describe.cu       (models/orb.py:148-204, XLA
-                        code in the JAX package: moments at the keypoints,
-                        angle and rotated BRIEF of every level in one
-                        launch)
+                        code in the JAX package: moments, angle, the blur
+                        at the samples and rotated BRIEF at the keypoints
+                        of every level in one launch from the levels)
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from . import lie
+from . import image, lie
 from .camera import Pinhole, pinhole_project, pinhole_project_jac
 
 # Per-cell candidate slots: 5x5 NMS forces >= 3 px spacing, so an 8x8 cell
@@ -75,8 +75,9 @@ _ENTRY_POINTS = {
     "local_ba": ("local_ba", [_P] * 22 + [_I] * 10 + [_F] * 5 + [_P, _P]),
     # host only; returns a count, not an error code
     "local_ba_scratch_floats": ("local_ba", [_I] * 6, ctypes.c_longlong),
-    "orb_fast": ("orb_fast", [_P] * 5 + [_I, _P, _F, _F, _I, _P]),
-    "orb_describe": ("orb_describe", [_P] * 9 + [_I, _P, _P]),
+    "orb_fast": ("orb_fast", [_P, _I, _I, _I] + [_P] * 5
+                 + [_F, _F, _I, _I, _P]),
+    "orb_describe": ("orb_describe", [_P] * 8 + [_I, _P, _P]),
 }
 _entries: dict = {}
 
@@ -764,9 +765,20 @@ local_ba.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# 7. orb_fast: FAST-9 at two thresholds, suppression, border, every level
+# 7. orb_fast: the pyramid, FAST-9 at two thresholds, suppression, border
 
 ORB_MAX_LEVELS = 8
+# orb_fast's output tile (TW, TH), csrc/orb_fast.cu's: of 32x16, 64x16 and
+# 64x32 the fastest by graph replay on a 640x480 frame (PERF.md)
+ORB_FAST_TILE = (32, 16)
+_ORB_HALO = 4  # 3 for the FAST circle, 1 for the suppression
+_ORB_MAX_TAPS = 16
+# (n_in, n_out) -> one resize axis as the kernel takes it, in numpy; the
+# same with the device, on it; (H0, W0, sizes, device) -> the level
+# geometry's tables
+_orb_axes: dict = {}
+_orb_axes_dev: dict = {}
+_orb_tables: dict = {}
 
 
 def _pointers(tensors):
@@ -779,12 +791,110 @@ def _ints(values):
     return (ctypes.c_int * len(values))(*(int(v) for v in values))
 
 
-def orb_fast_plain(levels, ini_thr: float, min_thr: float, edge: int):
-    """Plain version: ``models/orb.fast_score_maps`` (the circle as one
-    stacked tensor, its sum in circle order), ``nms3_mask`` and the border
-    mask, level by level."""
+def orb_axis_arrays(n_in: int, n_out: int):
+    """One axis of ``image.resize_bilinear`` from ``n_in`` to ``n_out`` as
+    ``orb_fast`` takes it, in numpy: per output the first input index of
+    its nonzero taps and their count ((n_out,) int32) and the weights
+    ((n_out, T) float32, the nonzero ones first). These are
+    ``image._taps``' tables, whose nonzero taps are consecutive inputs in
+    increasing order and whose zero-weight padding leaves a tap chain's
+    sum as it is; a table of another shape raises."""
+    key = (n_in, n_out)
+    t = _orb_axes.get(key)
+    if t is None:
+        idx, wt = (a.numpy() for a in image._taps(n_in, n_out, "cpu"))
+        nz = wt != 0
+        count = nz.sum(1)
+        ok = bool((count >= 1).all()) and wt.shape[1] <= _ORB_MAX_TAPS
+        for j in range(n_out):
+            c = count[j]
+            ok = ok and bool(nz[j, :c].all()) and bool(
+                (idx[j, :c] == idx[j, 0] + np.arange(c)).all())
+        if not ok:
+            raise ValueError(f"orb_fast: the resize {n_in} -> {n_out} has "
+                             "taps the kernel does not take")
+        t = _orb_axes[key] = (idx[:, 0].astype(np.int32),
+                              count.astype(np.int32), wt.astype(np.float32))
+    return t
+
+
+def orb_axis_taps(n_in: int, n_out: int, device):
+    """``orb_axis_arrays`` on ``device``, cached: the first call, outside
+    any graph capture, makes them."""
+    key = (n_in, n_out, str(device))
+    t = _orb_axes_dev.get(key)
+    if t is None:
+        t = _orb_axes_dev[key] = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in orb_axis_arrays(n_in, n_out))
+    return t
+
+
+def orb_tile_span(n_in: int, n_out: int, tile: int, start, count) -> int:
+    """The most inputs along one axis that the taps of a tile's halo rows
+    (or columns) cover, over the tiles of a level ``n_out`` long, each
+    ``tile`` long from 0: halo index o - 4 + i (i < tile + 8) is level
+    index o - 4 + i - k n_out in [0, n_out) with its taps moved by k n_in
+    (the kernel's unwrapped input space). ``start``, ``count``: numpy."""
+    most = 0
+    for o in range(0, n_out, tile):
+        u = np.arange(o - _ORB_HALO, o + tile + _ORB_HALO)
+        x = u % n_out
+        su = start[x] + (u - x) // n_out * n_in
+        most = max(most, int((su + count[x] - 1).max() - su.min() + 1))
+    return most
+
+
+def orb_fast_tables(H0: int, W0: int, sizes, device):
+    """What ``orb_fast`` hands its kernel for one level geometry: per level
+    its axis order (``image.resize_bilinear``'s: H first unless W first
+    is cheaper) and, above level 0, its row and column taps
+    (``orb_axis_taps``); and the work area in floats (a tile's input
+    region over the widest row and column spans and the resize's
+    intermediate after it, at least the score ring). Cached per (H0, W0,
+    sizes, device)."""
+    key = (H0, W0, tuple(sizes), str(device))
+    t = _orb_tables.get(key)
+    if t is not None:
+        return t
+    TW, TH = ORB_FAST_TILE
+    PH, PW = TH + 2 * _ORB_HALO, TW + 2 * _ORB_HALO
+    work = 2 * (TH + 2) * (TW + 2)
+    levels = []
+    for lvl, (h, w) in enumerate(sizes):
+        if lvl == 0:
+            levels.append((True, None, None))
+            continue
+        h_first = image.resize_h_first(H0, W0, h, w)
+        rows = orb_axis_taps(H0, h, device)
+        cols = orb_axis_taps(W0, w, device)
+        nr = orb_tile_span(H0, h, TH, *orb_axis_arrays(H0, h)[:2])
+        nc = orb_tile_span(W0, w, TW, *orb_axis_arrays(W0, w)[:2])
+        work = max(work, nr * nc + (PH * nc if h_first else nr * PW))
+        levels.append((h_first, rows, cols))
+    t = _orb_tables[key] = (levels, work)
+    return t
+
+
+def level_views(levels, sizes):
+    """The (h, w) views of the flat level buffer ``orb_fast`` returns."""
+    out, at = [], 0
+    for h, w in sizes:
+        out.append(levels[at:at + h * w].view(h, w))
+        at += h * w
+    return out
+
+
+def orb_fast_plain(img0, sizes, ini_thr: float, min_thr: float, edge: int):
+    """Plain version: each level by ``models/orb._level_image``
+    (``image.resize_bilinear``, a kernel a tap per axis), then
+    ``models/orb.fast_score_maps`` (the circle as one stacked tensor, its
+    sum in circle order), ``nms3_mask`` and the border mask, level by
+    level."""
     from ..models import orb  # orb imports this module
 
+    levels = [orb._level_image(img0, lvl, h, w)
+              for lvl, (h, w) in enumerate(sizes)]
     scores, masked, counts = [], [], []
     for x in levels:
         h, w = x.shape
@@ -796,116 +906,142 @@ def orb_fast_plain(levels, ini_thr: float, min_thr: float, edge: int):
         scores.append(s)
         masked.append(torch.where(m, s, -1.0))
         counts.append(m[0].sum(dtype=torch.int32))
-    return scores, masked, torch.stack(counts)
+    flat = torch.cat([x.reshape(-1) for x in levels])
+    return flat, scores, masked, torch.stack(counts)
 
 
-def orb_fast(levels, ini_thr: float, min_thr: float, edge: int):
-    """FAST-9 corner scores at the initial and the minimum threshold, their
-    3x3 local maxima above 0 inside the border, for every pyramid level,
-    in one launch.
+def orb_fast(img0, sizes, ini_thr: float, min_thr: float, edge: int):
+    """The ORB pyramid and, on every level, the FAST-9 corner scores at the
+    initial and the minimum threshold and their 3x3 local maxima above 0
+    inside the border, in one launch from the level-0 image.
 
     Args:
-      levels: 1..8 level images, each (h, w) float32 in [0, 255]; circle
-        pixels wrap around the image (the JAX package's ``jnp.roll``), the
+      img0: (H0, W0) float32 in [0, 255], the level-0 image.
+      sizes: 1..8 level sizes (h, w), the first (H0, W0); level l >= 1 is
+        ``image.resize_bilinear(img0, (h, w))`` bit for bit. Circle pixels
+        wrap around the level (the JAX package's ``jnp.roll``), the
         suppression window does not.
       ini_thr, min_thr: the two FAST thresholds; edge: the border width.
-    Returns (scores, masked, counts): per level the (2, h, w) score maps
-    ([0] the initial, [1] the minimum threshold; 0 off corners), the same
-    maps with -1 off the survivors, and (L,) int32 survivors at the
-    initial threshold per level."""
-    if not _on_cuda(*levels):
-        return orb_fast_plain(levels, ini_thr, min_thr, edge)
-    L = len(levels)
+    Returns (levels, scores, masked, counts): the level images as one flat
+    float32 buffer, level after level (``level_views`` cuts it); per level
+    the (2, h, w) score maps ([0] the initial, [1] the minimum threshold; 0
+    off corners) and the same maps with -1 off the survivors; and (L,)
+    int32 survivors at the initial threshold per level."""
+    if not _on_cuda(img0):
+        return orb_fast_plain(img0, sizes, ini_thr, min_thr, edge)
+    L = len(sizes)
     if not 1 <= L <= ORB_MAX_LEVELS:
         raise ValueError(f"orb_fast: 1 to {ORB_MAX_LEVELS} levels, got {L}")
-    for i, x in enumerate(levels):
-        if x.dim() != 2 or min(x.shape) < 1:
-            raise ValueError(f"orb_fast: level {i} must be a non-empty (h, w) "
-                             f"image, got {tuple(x.shape)}")
-        _check(x, f"levels[{i}]", torch.float32, x.shape)
-    dev = levels[0].device
-    sizes = [tuple(x.shape) for x in levels]
-    buf = torch.empty(sum(4 * h * w for h, w in sizes), dtype=torch.float32,
-                      device=dev)
-    scores, masked, at = [], [], 0
-    for h, w in sizes:
-        scores.append(buf[at:at + 2 * h * w].view(2, h, w))
-        masked.append(buf[at + 2 * h * w:at + 4 * h * w].view(2, h, w))
-        at += 4 * h * w
+    if img0.dim() != 2 or min(img0.shape) < 1:
+        raise ValueError(f"orb_fast: img0 must be a non-empty (h, w) image, "
+                         f"got {tuple(img0.shape)}")
+    _check(img0, "img0", torch.float32, img0.shape)
+    H0, W0 = img0.shape
+    sizes = [(int(h), int(w)) for h, w in sizes]
+    if sizes[0] != (H0, W0) or min(min(s) for s in sizes) < 1:
+        raise ValueError(f"orb_fast: level 0 must be img0's size and every "
+                         f"level non-empty, got {sizes}")
+    dev = img0.device
+    tables, work = orb_fast_tables(H0, W0, sizes, dev)
+    n_px = sum(h * w for h, w in sizes)
+    levels = torch.empty(n_px, dtype=torch.float32, device=dev)
+    maps = torch.empty(4 * n_px, dtype=torch.float32, device=dev)
     counts = torch.zeros(L, dtype=torch.int32, device=dev)
-    img_p, score_p, masked_p = (_pointers(t) for t in (levels, scores, masked))
-    hs, ws = _ints([h for h, _ in sizes]), _ints([w for _, w in sizes])
-    _launch("orb_fast", levels[0].get_device(), ctypes.addressof(img_p),
-            ctypes.addressof(score_p), ctypes.addressof(masked_p),
-            ctypes.addressof(hs), ctypes.addressof(ws), L, _ptr(counts),
-            float(ini_thr), float(min_thr), int(edge))
+    scores, masked, ptrs, taps, at = [], [], [], [], 0
+    views = level_views(levels, sizes)
+    for (h, w), view, (_, rows, cols) in zip(sizes, views, tables):
+        scores.append(maps[4 * at:4 * at + 2 * h * w].view(2, h, w))
+        masked.append(maps[4 * at + 2 * h * w:4 * (at + h * w)].view(2, h, w))
+        at += h * w
+        ptrs += [view, scores[-1], masked[-1]]
+        # level 0 takes no taps: its six table pointers are placeholders
+        ptrs += [*rows, *cols] if rows is not None else [view] * 6
+        taps += ([rows[2].shape[1], cols[2].shape[1]] if rows is not None
+                 else [0, 0])
+    ptr_arr = _pointers(ptrs)
+    hw = _ints([v for s in sizes for v in s])
+    h_first = _ints([f for f, _, _ in tables])
+    tap_arr = _ints(taps)
+    _launch("orb_fast", img0.get_device(), _ptr(img0), H0, W0, L,
+            ctypes.addressof(hw), ctypes.addressof(h_first),
+            ctypes.addressof(ptr_arr), ctypes.addressof(tap_arr),
+            _ptr(counts), float(ini_thr), float(min_thr), int(edge), work)
     orb_fast.launches += 1
-    return scores, masked, counts
+    return levels, scores, masked, counts
 
 
 orb_fast.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# 8. orb_describe: moments at the keypoints, angle and rotated BRIEF
+# 8. orb_describe: moments, angle, the blur at the samples and rotated BRIEF
+
+_gauss_weights: list = []
 
 
-def orb_describe_plain(levels, blurred, kpts, valid, pattern):
+def orb_describe_plain(levels, kpts, valid):
     """Plain version: ``models/orb.orientation_maps`` (two 31x31
-    convolutions over the level) and ``describe`` (the gathers), level by
-    level."""
+    convolutions over the level), ``blur7`` (a float64 convolution rounded
+    to float32) and ``describe`` (the gathers of ``models/orb``'s pattern),
+    level by level."""
     from ..models import orb  # orb imports this module
 
     outs = []
-    for x, b, k, v in zip(levels, blurred, kpts, valid):
+    for x, k, v in zip(levels, kpts, valid):
         m10, m01 = orb.orientation_maps(x)
-        outs.append(orb.describe(b, m10, m01, k, v))
+        outs.append(orb.describe(orb.blur7(x), m10, m01, k, v))
     return outs
 
 
-def orb_describe(levels, blurred, kpts, valid, pattern):
-    """Oriented BRIEF at the keypoints of every pyramid level in one launch:
-    the intensity-centroid moments on the radius-15 disc at each keypoint's
-    integer position (zero outside the level), the angle, and the 256
-    rotated pattern pairs read from the blurred level.
+def orb_describe(levels, kpts, valid):
+    """Oriented BRIEF at the keypoints of every pyramid level in one launch
+    from the level images: the intensity-centroid moments on the radius-15
+    disc at each keypoint's integer position (zero outside the level), the
+    angle, and ``models/orb``'s 256 rotated pattern pairs, each point's
+    value the 7x7 Gaussian blur there (``models/orb.blur7``: summed in
+    float64, rounded once to float32; the kernel orders most pairs by a
+    float32 blur whose error it bounds, see ``csrc/orb_describe.cu``).
 
     Args:
-      levels, blurred: per level (h, w) float32, the level image and its
-        7x7 Gaussian blur.
+      levels: per level (h, w) float32, the level image (e.g.
+        ``level_views`` of ``orb_fast``'s buffer).
       kpts: per level (n, 2) float32 (x, y) level coordinates; valid: per
         level (n,) bool.
-      pattern: (256, 4) float32 sampling pairs (x1, y1, x2, y2).
     Returns per level (desc (n, 256) float32 0/1 times valid, angle (n,)
     radians)."""
-    if not _on_cuda(*levels, *blurred, *kpts, *valid, pattern):
-        return orb_describe_plain(levels, blurred, kpts, valid, pattern)
+    from ..models import orb  # orb imports this module
+
+    if not _on_cuda(*levels, *kpts, *valid):
+        return orb_describe_plain(levels, kpts, valid)
     L = len(levels)
-    if not 1 <= L <= ORB_MAX_LEVELS or not (
-            len(blurred) == len(kpts) == len(valid) == L):
+    if not 1 <= L <= ORB_MAX_LEVELS or not len(kpts) == len(valid) == L:
         raise ValueError(f"orb_describe: 1 to {ORB_MAX_LEVELS} levels, each "
-                         "with its blur, keypoints and flags")
-    _check(pattern, "pattern", torch.float32, (256, 4))
+                         "with its keypoints and flags")
     dev = levels[0].device
     descs, angles = [], []
-    for i, (x, b, k, v) in enumerate(zip(levels, blurred, kpts, valid)):
+    for i, (x, k, v) in enumerate(zip(levels, kpts, valid)):
         if x.dim() != 2 or min(x.shape) < 1:
             raise ValueError(f"orb_describe: level {i} must be a non-empty "
                              f"(h, w) image, got {tuple(x.shape)}")
         n = k.shape[0]
         _check(x, f"levels[{i}]", torch.float32, x.shape)
-        _check(b, f"blurred[{i}]", torch.float32, x.shape)
         _check(k, f"kpts[{i}]", torch.float32, (n, 2))
         _check(v, f"valid[{i}]", torch.bool, (n,))
         descs.append(torch.empty((n, 256), dtype=torch.float32, device=dev))
         angles.append(torch.empty(n, dtype=torch.float32, device=dev))
-    ptrs = [_pointers(t) for t in (levels, blurred, kpts, valid, descs,
-                                   angles)]
+    if not _gauss_weights:
+        _gauss_weights.append((ctypes.c_float * 49)(
+            *orb._gauss_kernel7().reshape(-1).tolist()))
+    pattern = orb._constant("pattern", dev,
+                            lambda: orb._PATTERN.astype(np.float32))
+    ptrs = [_pointers(t) for t in (levels, kpts, valid, descs, angles)]
     hs, ws, ns = (_ints(v) for v in ([x.shape[0] for x in levels],
                                      [x.shape[1] for x in levels],
                                      [k.shape[0] for k in kpts]))
     _launch("orb_describe", levels[0].get_device(),
             *(ctypes.addressof(p) for p in ptrs), ctypes.addressof(hs),
-            ctypes.addressof(ws), ctypes.addressof(ns), L, _ptr(pattern))
+            ctypes.addressof(ws), ctypes.addressof(ns), L, _ptr(pattern),
+            ctypes.addressof(_gauss_weights[0]))
     if sum(k.shape[0] for k in kpts):
         orb_describe.launches += 1
     return list(zip(descs, angles))

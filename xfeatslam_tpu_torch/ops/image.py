@@ -112,6 +112,16 @@ def _contract(x, dim: int, n_out: int):
     return acc.movedim(-1, dim)
 
 
+def resize_h_first(H: int, W: int, oh: int, ow: int) -> bool:
+    """Whether ``resize_bilinear`` from (H, W) to (oh, ow) applies the H
+    axis first: the order JAX's einsum takes (opt_einsum's flop counts of
+    the two orders, the cheaper first, H on a tie), H first when only one
+    axis changes."""
+    if oh == H or ow == W:
+        return True
+    return W * oh * (H + ow) <= H * ow * (W + oh)
+
+
 def resize_bilinear(x, out_hw):
     """Half-pixel-center bilinear resize of (B,H,W,C) float32 as
     ``jax.image.resize(..., "bilinear")`` computes it on the CPU: the
@@ -123,8 +133,7 @@ def resize_bilinear(x, out_hw):
     B, H, W, C = x.shape
     oh, ow = (int(v) for v in out_hw)
     do_h, do_w = oh != H, ow != W
-    # opt_einsum's flop counts of the two orders (B and C common to both)
-    h_first = not (do_h and do_w) or W * oh * (H + ow) <= H * ow * (W + oh)
+    h_first = resize_h_first(H, W, oh, ow)
     if do_h and h_first:
         x = _contract(x, 1, oh)
     if do_w:
