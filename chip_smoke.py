@@ -131,7 +131,13 @@ Phases, each fatal on failure:
      frames, loop closing off: < 1 cm max, < 5 mm median; 40 frames, loop
      closing on, twice, counted: every frame OK, < 3 cm, >= 3 keyframes,
      the second run bit-identical to the first, pose_lm 2 per
-     graph-tracked frame, local_ba 1 per round, no XFeat kernel); the
+     graph-tracked frame, local_ba 1 per round, no XFeat kernel); on that
+     run's System relocalization and localization mode as in phase 9 (frame
+     0 fed LOST, then RECENTLY_LOST with the motion model and reference
+     keyframe made to fail, then frame 1 fed LOST: each OK within 1 cm, the
+     map unchanged, the pose LM against its plain version on every
+     relocalization call; frames 2-6 in localization mode OK, the map
+     unchanged; counted: orb_fast, orb_describe, pose_lm); the
      readers phase's TUM directory through ``rgbd_tum --backend orb``
      (within 1 cm) and ``mono_tum --backend orb`` (>= 1 keyframe);
  14. XFeat stereo, counted: ``System(Sensor.STEREO).track_stereo`` on the
@@ -149,13 +155,34 @@ Phases, each fatal on failure:
      RGB-D System through a KB8 camera on 8 rendered 384x288 frames, counted
      (every frame OK, < 5 cm, none through the pinhole frame step);
  17. rectification without cv2: the host ms of an EuRoC-style rig's
-     ``precompute_rectification`` and of ``rectify`` per 752x480 pair.
+     ``precompute_rectification`` and of ``rectify`` per 752x480 pair;
+ 18. visual-inertial RGB-D, ``System(Sensor.IMU_RGBD)``: the ORB System
+     on tests/test_inertial_slam.py::TestImuRgbd's run (60 frames of
+     ``make_vi_sequence`` at 640x480, 10 fps, 200 Hz IMU, its injected
+     biases and noise, its Settings) twice, counted (orb_fast and
+     orb_describe; pose_lm and local_ba before IMU initialization), each
+     held to TestImuRgbd's bars (IMU initialized with VIBA1 and VIBA2,
+     gravity within 0.35, >= 6 keyframes, scale within 0.03, ATE max
+     < 5 cm, the last 3 keyframes' velocities within 0.08 m/s, biases
+     within 2e-3 and 4e-2, every frame from 1 OK), run 2 (replaying run
+     1's graphs) bit-identical to run 1; its wall median and p90, the
+     ``track`` and ``backend`` spans, the launches per frame; the XFeat
+     System on the same run twice (IMU initialized, every frame from 1 OK,
+     detect_candidates and keypoint_desc once per frame, the runs
+     bit-identical; its figures printed without bars); each inertial
+     solver (``preintegrate``, both inertial pose LMs, ``inertial_init``,
+     ``local_inertial_ba`` on the window and the full chain) on the card
+     against the same function on CPU tensors, on run 1's recorded inputs,
+     at the CPU tests' bars, with its eager ms, capture wall ms, replay ms,
+     device events per call and bound; the 4-DoF essential graph on a
+     12-keyframe loop, card against CPU within 1e-4.
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers (``orb_launches``, the
 launches on the ORB RGB-D path, on ``pose_lm``, ``local_ba`` and the two
 ORB kernels, whose ``launches`` are the ORB stereo path's;
-``stereo_launches`` on the XFeat stereo path's kernels), and as its last
+``stereo_launches`` on the XFeat stereo path's kernels;
+``imu_rgbd_launches`` on the ORB IMU_RGBD path's), and as its last
 line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is missing.
@@ -165,6 +192,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -276,6 +304,10 @@ ORB_FRAMES_SHORT, ORB_FRAMES_LONG, ORB_MIN_TRACKED = 14, 40, 30
 ORB_LEVEL_JACCARD = 0.95
 ORB_SLAM_KERNELS = {"pose_lm": None, "local_ba": None, "orb_fast": None,
                     "orb_describe": None}
+# an ORB frame's kernels outside the SLAM runs: the extractor's two and the
+# pose LM
+ORB_FRAME_KERNELS = {"orb_fast": None, "orb_describe": None,
+                     "pose_lm": None}
 # the ORB stages by replay as tensor ops, before their kernels (PERF.md,
 # NVIDIA H100 80GB HBM3 at 700 W): candidates ms and device events,
 # describe ms and device events
@@ -1435,7 +1467,8 @@ def slam_phase(ck, n_frames):
     return run3, seq, run1["problems"], counts
 
 
-def relocalization_phase(ck, run, seq):
+def relocalization_phase(ck, run, seq, kernels=FRAME_STEP_KERNELS,
+                         label="relocalization"):
     """After the SLAM runs: the tracker set LOST takes frame RELOC_FRAME at
     a later time and must come back OK within 1 cm of the truth; then the
     same frame arrives RECENTLY_LOST with the motion model and the
@@ -1443,8 +1476,10 @@ def relocalization_phase(ck, run, seq):
     (that used to raise); then the tracker set LOST takes RELOC_OTHER_FRAME,
     which no keyframe was made from. Each comes back OK within 1 cm, the
     map unchanged (a LOST frame that fails resets a small map). Counted:
-    each builds its frame with the extraction kernels. Returns the next
-    timestamp and the last frame fed."""
+    each builds its frame with the extraction kernels (``kernels``: the
+    XFeat frame step's, or the ORB extractor's). Returns the next
+    timestamp, the last frame fed and the pose LM's largest gap to its
+    plain version."""
     from xfeatslam_tpu_torch.slam.tracking import State
 
     system = run["system"]
@@ -1456,6 +1491,7 @@ def relocalization_phase(ck, run, seq):
     map_id, kfs = system.map.map_id, system.map.num_keyframes()
     t_next = seq["timestamps"][-1] + 1.0
     ck.reset_launch_counts()
+    tag = label
     for label, state, i in (("LOST", State.LOST, RELOC_FRAME),
                             ("RECENTLY_LOST", State.RECENTLY_LOST,
                              RELOC_FRAME),
@@ -1480,39 +1516,36 @@ def relocalization_phase(ck, run, seq):
         Rg, tg = seq["poses"][i]
         err = (float(np.linalg.norm(-pose[0].T @ pose[1] + Rg.T @ tg))
                if pose is not None else float("nan"))
-        print(f"relocalization from {label}: frame {i} (frame id {fid}; "
+        print(f"{tag} from {label}: frame {i} (frame id {fid}; "
               f"keyframes from frames {kf_frames}) -> {got.name}, camera "
               f"centre error {err * 1e3:.3f} mm (tracked in the run: "
               f"{run['errs'][i] * 1e3:.3f} mm), reloc_ok {before} -> "
               f"{tr.stats.get('reloc_ok', 0)}, host wall {wall * 1e3:.1f} ms")
-        check(got == State.OK, f"relocalization of frame {i} from {label} "
-              "failed")
-        check(err < 0.01, f"relocalization of frame {i} from {label}: "
-              "error >= 1 cm")
+        check(got == State.OK, f"{tag} of frame {i} from {label} failed")
+        check(err < 0.01, f"{tag} of frame {i} from {label}: error >= 1 cm")
         check(system.map.map_id == map_id
               and system.map.num_keyframes() == kfs,
-              f"relocalization of frame {i} from {label} left the map")
+              f"{tag} of frame {i} from {label} left the map")
         if forced:
             check(tr.stats.get("reloc_ok", 0) == before + 1,
-                  "the RECENTLY_LOST frame did not relocalize")
+                  f"{tag}: the RECENTLY_LOST frame did not relocalize")
         t_next += 1.0 / 30
     # a local-BA round may run after a relocalized frame
-    path_counts(ck, "relocalization", {name: None
-                                       for name in FRAME_STEP_KERNELS},
+    path_counts(ck, tag, {name: None for name in kernels},
                 allowed=("local_ba",))
     # the pose LM kernel against its plain version on every call the
     # relocalizations made (the relocalization LM and the tracking after)
-    check(lm_calls, "relocalization made no pose-LM call")
-    err = max(compare_pose_lm(ck, args, kwargs, f"relocalization call {c}")
+    check(lm_calls, f"{tag} made no pose-LM call")
+    err = max(compare_pose_lm(ck, args, kwargs, f"{tag} call {c}")
               for c, (args, kwargs) in enumerate(lm_calls))
     return t_next, RELOC_OTHER_FRAME, err
 
 
-def localization_phase(ck, run, seq, t_next, last):
+def localization_phase(ck, run, seq, t_next, last,
+                       kernels=FRAME_STEP_KERNELS, label="localization mode"):
     """Localization mode: the 5 frames after ``last``, the frame last
-    relocalized, every
-    frame OK and the map's keyframe and point counts unchanged;
-    counted."""
+    relocalized, every frame OK and the map's keyframe and point counts
+    unchanged; counted (``kernels``: the path's)."""
     system = run["system"]
     system.activate_localization_mode()
     kfs, mps = system.map.num_keyframes(), system.map.num_points()
@@ -1525,16 +1558,15 @@ def localization_phase(ck, run, seq, t_next, last):
         states.append(state.name)
         Rg, tg = seq["poses"][i]
         errs.append(float(np.linalg.norm(-pose[0].T @ pose[1] + Rg.T @ tg)))
-    path_counts(ck, "localization mode, 5 frames",
-                {name: None for name in FRAME_STEP_KERNELS},
+    path_counts(ck, f"{label}, 5 frames", {name: None for name in kernels},
                 allowed=("local_ba",))
-    print(f"localization mode: states {states}, camera centre error max "
+    print(f"{label}: states {states}, camera centre error max "
           f"{max(errs) * 1e3:.3f} mm; keyframes {kfs} -> "
           f"{system.map.num_keyframes()}, map points {mps} -> "
           f"{system.map.num_points()}")
-    check(states == ["OK"] * 5, "localization mode: a frame was not OK")
+    check(states == ["OK"] * 5, f"{label}: a frame was not OK")
     check(system.map.num_keyframes() == kfs and system.map.num_points() == mps,
-          "localization mode changed the map")
+          f"{label} changed the map")
     system.deactivate_localization_mode()
 
 
@@ -2789,7 +2821,7 @@ def orb_slam_phase(ck):
     }
     print(f"orb slam timings (host wall, run 2, {ORB_FRAMES_LONG} frames at "
           f"{W}x{H}, K={K}): " + json.dumps(report))
-    return b["counts"]
+    return b, seq
 
 
 def orb_readers_phase(root, cfg, seq):
@@ -2831,12 +2863,24 @@ def orb_readers_phase(root, cfg, seq):
 
 
 def orb_phase(ck, root, cfg, seq):
-    """The ORB backend: the extractor and its kernels, RGB-D SLAM, the
-    readers. Returns the SLAM run's launch counts and the kernels' rows."""
+    """The ORB backend: the extractor and its kernels, RGB-D SLAM, then on
+    the SLAM run's System relocalization from LOST and RECENTLY_LOST and
+    localization mode (as the XFeat System's phases: each frame OK within
+    1 cm, the map unchanged, the pose LM against its plain version on every
+    relocalization call), the readers. Returns the SLAM run's launch
+    counts, the kernels' rows and the relocalizations' pose-LM gap."""
     _, rows = orb_extractor_phase(ck)
-    counts = orb_slam_phase(ck)
+    run, slam_seq = orb_slam_phase(ck)
+    counts = run["counts"]
+    run["errs"] = np.asarray(run["errs"])
+    t_next, last, lm_err = relocalization_phase(
+        ck, run, slam_seq, kernels=ORB_FRAME_KERNELS,
+        label="orb relocalization")
+    localization_phase(ck, run, slam_seq, t_next, last,
+                       kernels=ORB_FRAME_KERNELS,
+                       label="orb localization mode")
     orb_readers_phase(root, cfg, seq)
-    return counts, rows
+    return counts, rows, lm_err
 
 
 def stereo_sequence(n):
@@ -3234,6 +3278,531 @@ def rectification_phase(root):
           "rectification: maps or images of the wrong shape")
 
 
+# the inertial phase: tests/test_inertial_slam.py::TestImuRgbd's run at its
+# size (60 frames at 640x480, 10 fps, 200 Hz IMU, its injected biases and
+# noise, its Settings) and its bars
+VI_FRAMES = 60
+VI_BG = np.array([0.004, -0.003, 0.002], np.float32)
+VI_BA = np.array([0.03, -0.02, 0.04], np.float32)
+# the captured inertial solvers: (System attribute path, function) of each
+VI_GRAPHS = {
+    "preintegrate": ("tracking", "_pre_graph"),
+    "pose_inertial": ("tracking", "_pose_inertial_graph"),
+    "pose_inertial_last_frame": ("tracking", "_pose_inertial_lf_graph"),
+    "inertial_init": ("local_mapping", "_init_graph"),
+    "local_inertial_ba": ("local_mapping", "_viba_graph"),
+}
+# the kernels of an ORB IMU_RGBD run: the extractor's two, the visual pose
+# LM before IMU initialization and in relocalization, local BA before it
+VI_ORB_KERNELS = {"orb_fast": None, "orb_describe": None}
+VI_ORB_ALLOWED = ("pose_lm", "local_ba")
+
+
+class _Recorder:
+    """Stands in for a captured solver and keeps a copy of the inputs of
+    its first and its latest call (while ``store`` is a list)."""
+
+    def __init__(self, graph):
+        self.graph, self.store = graph, []
+
+    def __call__(self, tensors, **static):
+        if self.store is not None:
+            self.store[1:] = [(tuple(a.clone() for a in tensors),
+                               dict(static))]
+        return self.graph(tensors, **static)
+
+
+def vi_sequence():
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    return synthetic.make_vi_sequence(
+        n_frames=VI_FRAMES, fps=10.0, imu_rate=200.0, hw=(H, W), seed=0,
+        bg=VI_BG, ba=VI_BA, noise_gyro=2e-4, noise_acc=2e-3)
+
+
+def vi_settings(Km):
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.ops.imu import ImuCalib
+    from xfeatslam_tpu_torch.slam.settings import Settings
+
+    calib = ImuCalib(noise_gyro=2e-4, noise_acc=2e-3, walk_gyro=1e-6,
+                     walk_acc=1e-5, R_bc=np.eye(3, dtype=np.float32),
+                     t_bc=np.zeros(3, np.float32))
+    return Settings(cam=Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2],
+                                           Km[1, 2]]),
+                    bf=40.0, th_depth=3.0, depth_map_factor=1.0, imu=calib,
+                    fps=10.0, imu_init_time=1.0, viba1_time=2.5,
+                    viba2_time=3.5)
+
+
+def _vi_run(seq, backend, graphs_from=None, record=False):
+    """One ``System(Sensor.IMU_RGBD)`` run over the VI sequence, each frame
+    with its IMU samples: states, poses, host wall per frame. The captured
+    solvers (and the BA and, for ORB, the extractor graphs) of
+    ``graphs_from`` are replayed; ``record`` keeps the inputs of each
+    solver's first calls."""
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+
+    system = System(vi_settings(seq["K"]), Sensor.IMU_RGBD, backend=backend,
+                    enable_loop_closing=False)
+    if graphs_from is not None:
+        if backend == "orb" and graphs_from.backend == "orb":
+            system.extractor._graphs = graphs_from.extractor._graphs
+        system.local_mapping._ba_graph = graphs_from.local_mapping._ba_graph
+        for part, attr in VI_GRAPHS.values():
+            g = getattr(getattr(graphs_from, part), attr)
+            setattr(getattr(system, part), attr, getattr(g, "graph", g))
+    if record:
+        for part, attr in VI_GRAPHS.values():
+            obj = getattr(system, part)
+            setattr(obj, attr, _Recorder(getattr(obj, attr)))
+    out = {"system": system, "states": [], "poses": [], "walls": []}
+    for i in range(VI_FRAMES):
+        tw = time.perf_counter()
+        state, pose = system.track_rgbd(seq["images"][i], seq["depths"][i],
+                                        seq["timestamps"][i],
+                                        imu=seq["imu"][i])
+        out["walls"].append(time.perf_counter() - tw)
+        out["states"].append(state.name)
+        out["poses"].append((pose[0].copy(), pose[1].copy()))
+    if record:
+        out["inputs"] = {}
+        for name, (part, attr) in VI_GRAPHS.items():
+            rec = getattr(getattr(system, part), attr)
+            out["inputs"][name] = rec.store
+            rec.store = None
+    return out
+
+
+def _umeyama(src, dst, with_scale=False):
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    X, Y = src - mu_s, dst - mu_d
+    U, D, Vt = np.linalg.svd(Y.T @ X / len(src))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = (float((D * np.diagonal(S)).sum() / ((X * X).sum() / len(src)))
+         if with_scale else 1.0)
+    return s, R, mu_d - s * R @ mu_s
+
+
+def vi_figures(seq, system):
+    """TestImuRgbd's figures of a run: gravity error, keyframes, scale,
+    ATE, the last 3 keyframes' velocity error, bias errors."""
+    m = system.map
+    kfs = sorted(m.keyframes.values(), key=lambda k: k.timestamp)
+    idx = [int(round(kf.timestamp * 10.0)) for kf in kfs]
+    est = np.stack([kf.center() for kf in kfs])
+    gt = np.stack([-seq["poses"][i][0].T @ seq["poses"][i][1] for i in idx])
+    Rg, _ = seq["poses"][idx[-1]]
+    g_m = (kfs[-1].R.T @ Rg) @ seq["g_w"]
+    s, R, t = _umeyama(est, gt, with_scale=True)
+    _s1, R_mw, _t1 = _umeyama(est, gt)
+    vel = max((float(np.linalg.norm(R_mw @ kf.vel - seq["v_w"][i]))
+               if kf.vel is not None else float("inf"))
+              for kf, i in zip(kfs[-3:], idx[-3:]))
+    return {
+        "imu_initialized": m.imu_initialized, "imu_ba1": m.imu_ba1,
+        "imu_ba2": m.imu_ba2,
+        "gravity_err": float(np.linalg.norm(g_m - [0, 0, -9.81])),
+        "keyframes": len(kfs), "scale_err": abs(s - 1.0),
+        "ate_max_m": float(np.linalg.norm((est @ R.T) * s + t - gt,
+                                          axis=1).max()),
+        "vel_err_last3": vel,
+        "bg_err": float(np.linalg.norm(m.imu_bg - VI_BG)),
+        "ba_err": float(np.linalg.norm(m.imu_ba - VI_BA)),
+    }
+
+
+def check_vi_bars(label, states, f):
+    """TestImuRgbd's bars."""
+    check(f["imu_initialized"] and f["imu_ba1"] and f["imu_ba2"],
+          f"{label}: the IMU schedule did not complete")
+    check(f["gravity_err"] < 0.35, f"{label}: gravity off by "
+          f"{f['gravity_err']}")
+    check(f["keyframes"] >= 6, f"{label}: {f['keyframes']} keyframes")
+    check(f["scale_err"] < 0.03, f"{label}: scale off by {f['scale_err']}")
+    check(f["ate_max_m"] < 0.05, f"{label}: ATE max {f['ate_max_m']}")
+    check(f["vel_err_last3"] < 0.08, f"{label}: velocity off by "
+          f"{f['vel_err_last3']}")
+    check(f["bg_err"] < 2e-3 and f["ba_err"] < 4e-2,
+          f"{label}: biases off by {f['bg_err']}, {f['ba_err']}")
+    check(all(s == "OK" for s in states[1:]),
+          f"{label}: a frame from 1 was not OK: {states}")
+
+
+def _vi_same(a, b):
+    """Every pose and the map (keyframe poses, velocities, biases, map
+    points) bit for bit."""
+    same = all(np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])
+               for p, q in zip(a["poses"], b["poses"]))
+    ma, mb = a["system"].map, b["system"].map
+    same &= sorted(ma.keyframes) == sorted(mb.keyframes)
+    for k in ma.keyframes if same else ():
+        ka, kb = ma.keyframes[k], mb.keyframes[k]
+        for f in ("R", "t", "vel", "bg", "ba"):
+            same &= np.array_equal(getattr(ka, f), getattr(kb, f))
+    n = ma.points.n
+    return bool(same and n == mb.points.n
+                and np.array_equal(ma.points.pos[:n], mb.points.pos[:n]))
+
+
+def _vi_report(run):
+    def pct(xs, q):
+        return round(float(np.percentile(np.asarray(xs) * 1e3, q)), 4)
+
+    spans = run["system"].timer.samples
+    return {"wall_per_frame_ms": {"median": pct(run["walls"][2:], 50),
+                                  "p90": pct(run["walls"][2:], 90)},
+            "track_ms": {"median": pct(spans["track"][2:], 50),
+                         "p90": pct(spans["track"][2:], 90)},
+            "backend_ms": {"median": pct(spans["backend"][2:], 50),
+                           "p90": pct(spans["backend"][2:], 90)},
+            "backend_max_ms": pct(spans["backend"][2:], 100)}
+
+
+def _solver_fn(name):
+    from xfeatslam_tpu_torch.ops import imu
+    from xfeatslam_tpu_torch.optim import inertial, viba
+
+    return {"preintegrate": imu.preintegrate,
+            "pose_inertial": inertial.pose_inertial_flat,
+            "pose_inertial_last_frame": inertial.pose_inertial_last_frame_flat,
+            "inertial_init": inertial.inertial_init,
+            "local_inertial_ba": viba.solve_flat}[name]
+
+
+# where a float32 accept-or-reject decision of a solver's LM differs
+# between the card and the CPU, its bias fields are held to TestImuRgbd's
+# bias bars instead (gyro 2e-3, acc 4e-2): the field index of each
+VI_BIAS_FIELDS = {"pose_inertial": (3, 4), "pose_inertial_last_frame": (3, 4),
+                  "inertial_init": (2, 3), "local_inertial_ba": (3, 4)}
+
+
+def lm_decisions(name, tensors, static):
+    """The accept-or-reject decisions of a solver's LM iterations on these
+    tensors (eager): [(kept, cost before, cost of the step)]."""
+    from xfeatslam_tpu_torch.optim import inertial
+
+    store = []
+    fn = _solver_fn(name)
+    if name == "local_inertial_ba":
+        fn(*tensors, trace=store, **static)
+    else:
+        orig = inertial._dense_lm
+        inertial._dense_lm = functools.partial(orig, trace=store)
+        try:
+            fn(*tensors, **static)
+        finally:
+            inertial._dense_lm = orig
+    return [tuple(float(v) for v in t.cpu()) for t in store]
+
+
+def _solver_gap(name, a, b, bias_bars=None):
+    """The largest gap between two results of a solver, field by field,
+    with the CPU tests' bars (or ``bias_bars`` on the bias fields):
+    (worst ratio gap/bar, report)."""
+    a, b = tuple(a), tuple(b)
+    if name == "preintegrate":
+        bars = [1e-5] * len(a)
+        bars[4] = 1e-5 * float(b[4].abs().max())  # the covariance, relative
+    elif name.startswith("pose_inertial"):
+        bars = [1e-4] * 5 + [None, None, 1e-4 * float(b[7].abs().max())]
+    elif name == "inertial_init":
+        bars = [1e-4 * float(b[0].abs()), 1e-4, 1e-5, 1e-5, 1e-4, None]
+    else:  # local_inertial_ba: states 1e-4, landmarks 2e-3 m
+        bars = [1e-4] * 5 + [2e-3, None, None]
+    if bias_bars is not None:
+        for i, bar in zip(VI_BIAS_FIELDS[name], bias_bars):
+            bars[i] = bar
+    worst, rep = 0.0, []
+    for i, (x, y, bar) in enumerate(zip(a, b, bars)):
+        if x.dtype == torch.bool:
+            agree = float((x.cpu() == y.cpu()).float().mean())
+            rep.append(round(agree, 6))
+            worst = max(worst, 0.0 if agree >= 0.99 else float("inf"))
+            continue
+        gap = float((x.cpu().double() - y.cpu().double()).abs().max())
+        rep.append(float(f"{gap:.3e}"))
+        if bar is not None:
+            worst = max(worst, gap / bar if bar > 0 else
+                        (0.0 if gap == 0 else float("inf")))
+    return worst, rep
+
+
+def _solver_bound(name, tensors, static):
+    """Bytes and float32 operations the solver's call needs at its least:
+    its inputs read once and its outputs written once; the operations of
+    its loops counted from its algorithm (per element of the residuals and
+    Jacobians it forms)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    if name == "preintegrate":
+        n = int(tensors[3].sum())  # valid samples
+        # per sample: three 9x9 products and the 6x6 one (~2,200), the
+        # exp, the right Jacobian and the bias Jacobians (~400)
+        flops = n * 2600
+    elif name.startswith("pose_inertial"):
+        n_dir = 15 if name == "pose_inertial" else 30
+        n_edges = int(tensors[-3].sum())  # valid visual edges
+        m = 3 * n_edges + 15 + (15 if n_dir == 30 else 0)
+        # 3 rounds x 8 LM iterations: the residuals and their derivative
+        # in n_dir directions (~60 ops per edge each), J^T J, the solve
+        flops = 24 * (m * n_dir * (60 + 2 * n_dir) + 2 * n_dir ** 3)
+    elif name == "inertial_init":
+        E = int(tensors[12].sum())
+        n = 9 + 3 * tensors[0].shape[0]
+        m = 9 * E + 6
+        flops = 60 * (m * n * (200 + 2 * n) + 2 * n ** 3)
+    else:
+        O = int(tensors[14].sum())
+        K, E = tensors[0].shape[0], int(tensors[27].sum())
+        iters = sum(static["stage_iters"])
+        cg = static["cg_iters"]
+        # per LM iteration the linearization (~400 per observation, the
+        # chain's 15x30 Jacobian ~30x300 per edge) and per CG step the
+        # products (~110 per observation, ~2x450 per edge, ~450 per state)
+        flops = iters * (O * 400 + E * 9000
+                         + cg * (O * 110 + E * 900 + K * 450))
+    return bound_ms(nbytes, flops)
+
+
+def inertial_solver_checks(inputs, graphs):
+    """Each inertial solver on the card against the same function on CPU
+    tensors, on the inputs the ORB run recorded (the first and the last of
+    its recorded calls), at the CPU tests' bars: the eager call's wall ms
+    (synchronized), the captures' wall ms (warm-up included) of the run's
+    graph, its replay ms (CUDA events around replays) and device events per
+    call (``torch.profiler``). ``graphs`` maps a solver to the run's
+    captured graph, which replays the recorded inputs. Returns rows by
+    name."""
+    rows, failed = {}, []
+    for name, calls in inputs.items():
+        check(calls, f"inertial solvers: the run made no {name} call")
+        graph = graphs[name]
+        for c in sorted({0, len(calls) - 1}):
+            tensors, static = calls[c]
+            fn = _solver_fn(name)
+
+            def eager():
+                return fn(*tensors, **static)
+
+            def replay():
+                return graph(tensors, **static)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = eager()
+            torch.cuda.synchronize()
+            eager_wall = (time.perf_counter() - t0) * 1e3
+            cpu_tensors = tuple(t.cpu() for t in tensors)
+            ref = fn(*cpu_tensors, **static)
+            worst, gaps = _solver_gap(name, got, ref)
+            flip = None
+            if worst > 1.0 and name in VI_BIAS_FIELDS:
+                # show where the card's LM and the CPU's part
+                dc = lm_decisions(name, tensors, static)
+                dh = lm_decisions(name, cpu_tensors, static)
+                flip = next(((i, c, h) for i, (c, h) in enumerate(zip(dc, dh))
+                             if c[0] != h[0]), None)
+                if flip is not None:
+                    worst, gaps = _solver_gap(name, got, ref, (2e-3, 4e-2))
+            n_captured = len(graph.capture_seconds)
+            rep = replay()
+            same = all(torch.equal(x, y) for x, y in zip(tuple(got),
+                                                         tuple(rep)))
+            check(len(graph.capture_seconds) == n_captured,
+                  f"inertial solver {name}: the recorded call's shapes have "
+                  "no graph from the run")
+            replay_ms = cuda_ms(replay, iters=10, warmup=1)
+            n_ev, dev_ms, top = stage_events(replay)
+            b_ms, b_by = _solver_bound(name, tensors, static)
+            key = name if c == 0 else f"{name}[{c}]"
+            rows[key] = {"eager_wall_ms": round(eager_wall, 2),
+                         "captures_wall_ms": [round(t * 1e3, 1) for t in
+                                              graph.capture_seconds],
+                         "replay_ms": round(replay_ms, 4),
+                         "device_events": n_ev,
+                         "device_ms": round(dev_ms, 4),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "replay_vs_eager_bits": same, "gaps_vs_cpu": gaps,
+                         "top": top}
+            if flip is not None:
+                rows[key]["lm_decision_differs"] = {
+                    "iteration": flip[0], "card": flip[1], "cpu": flip[2]}
+            print(f"inertial solver {key} (shapes "
+                  f"{[tuple(t.shape) for t in tensors[:2]]}): card vs CPU "
+                  f"gaps {gaps} (worst {worst:.3f} of the bars), replay "
+                  f"bit-identical to eager {same}; " + json.dumps(
+                      {k: v for k, v in rows[key].items()
+                       if k not in ("gaps_vs_cpu",)}))
+            if flip is not None:
+                print(f"inertial solver {key}: the LM's accept-or-reject "
+                      f"decision differs at iteration {flip[0]}: card (kept, "
+                      f"cost, step's cost) {flip[1]}, CPU {flip[2]}; biases "
+                      "held to TestImuRgbd's bars")
+            if worst > 1.0:
+                failed.append(f"{key} ({gaps})")
+    check(not failed, "inertial solvers: card and CPU disagree beyond the "
+          "bars: " + "; ".join(failed))
+    return rows
+
+
+def pose_graph_4dof_check(dev):
+    """The 4-DoF essential graph on one problem (a 12-keyframe circle whose
+    odometry drifts in yaw and translation, closed by one loop edge): the
+    card against the CPU, poses within 1e-4."""
+    from xfeatslam_tpu_torch.ops import lie
+    from xfeatslam_tpu_torch.optim import pose_graph as pg
+
+    C = 12
+    R_gt, t_gt = [], []
+    for i in range(C):
+        ang = 2 * np.pi * i / C
+        xi = torch.tensor([np.sin(ang), 0.0, np.cos(ang) - 1.0, 0.0,
+                           ang if ang < np.pi else ang - 2 * np.pi, 0.0],
+                          dtype=torch.float32)
+        R, t = lie.se3_exp(xi)
+        R_gt.append(R.numpy())
+        t_gt.append(t.numpy())
+    drift = torch.tensor([0.0, 0.012, -0.008, 0.002, 0.0, -0.006, 0.0])
+    dR = lie.so3_exp(drift[3:6]).numpy()
+    dt = drift[:3].numpy()
+    m_R, m_t = [], []
+    edges = [(i, i + 1) for i in range(C - 1)] + [(0, C - 1)]
+    for k, (i, j) in enumerate(edges):
+        mR = R_gt[j] @ R_gt[i].T
+        mt = t_gt[j] - mR @ t_gt[i]
+        if k < C - 1:
+            mR, mt = dR @ mR, dR @ mt + dt
+        m_R.append(mR)
+        m_t.append(mt)
+    R0, t0 = [R_gt[0]], [t_gt[0]]
+    for k in range(C - 1):
+        R0.append(m_R[k] @ R0[-1])
+        t0.append(m_R[k] @ t0[-1] + m_t[k])
+    arrays = dict(
+        s=np.ones(C, np.float32), R=np.stack(R0).astype(np.float32),
+        t=np.stack(t0).astype(np.float32), fixed=np.arange(C) == 0,
+        cam_valid=np.ones(C, bool),
+        edge_i=np.array([e[0] for e in edges], np.int32),
+        edge_j=np.array([e[1] for e in edges], np.int32),
+        m_s=np.ones(C, np.float32), m_R=np.stack(m_R).astype(np.float32),
+        m_t=np.stack(m_t).astype(np.float32), e_valid=np.ones(C, bool))
+    cpu = pg.optimize_pose_graph(pg.PoseGraphProblem(
+        **{k: torch.from_numpy(v) for k, v in arrays.items()}), mode="4dof")
+    prob = pg.PoseGraphProblem(**{k: torch.from_numpy(v).to(dev)
+                                  for k, v in arrays.items()})
+    card = pg.optimize_pose_graph(prob, mode="4dof")
+    gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu))
+    drift_before = float(np.linalg.norm(arrays["t"][-1] - t_gt[-1]))
+    drift_after = float(np.linalg.norm(card[2][-1].cpu().numpy() - t_gt[-1]))
+    ms = cuda_ms(lambda: pg.optimize_pose_graph(prob, mode="4dof"),
+                 iters=2, warmup=0)
+    n_ev, dev_ms, _ = stage_events(lambda: pg.optimize_pose_graph(
+        prob, mode="4dof"))
+    # 20 LM iterations: per edge the residual and its derivative in the 4
+    # directions of both vertices (~250 ops each), then 50 CG steps of
+    # ~120 ops an edge and ~50 a vertex; the inputs read, the poses written
+    b_ms, b_by = bound_ms(
+        sum(v.nbytes for v in arrays.values()) + C * 13 * 4,
+        20 * (len(edges) * 8 * 250 + 50 * (len(edges) * 120 + C * 50)))
+    print(f"4-DoF essential graph ({C} keyframes, {len(edges)} edges): card "
+          f"vs CPU max gap {gap:.3e}; the last keyframe's drift "
+          f"{drift_before * 1e3:.3f} -> {drift_after * 1e3:.3f} mm; eager "
+          f"{ms:.3f} ms, {n_ev} device events, {dev_ms:.3f} device ms")
+    check(gap <= 1e-4, "4-DoF essential graph: card and CPU disagree")
+    check(drift_after < 0.3 * drift_before,
+          "4-DoF essential graph: the drift was not redistributed")
+    return {"eager_ms": round(ms, 4), "device_events": n_ev,
+            "device_ms": round(dev_ms, 4), "bound_ms": b_ms, "bound_by": b_by,
+            "gap_vs_cpu": gap}
+
+
+def inertial_phase(ck):
+    """``System(Sensor.IMU_RGBD)``: the ORB System on TestImuRgbd's run
+    twice (run 2 replaying run 1's graphs), each held to TestImuRgbd's bars,
+    run 2 bit-identical to run 1, its wall, spans and launches per frame;
+    the XFeat System on the same run twice (IMU initialized, every frame
+    from 1 OK, detect_candidates and keypoint_desc once per frame, run 2
+    bit-identical; its figures printed without bars); each inertial solver
+    on the card against the same function on CPU tensors with run 1's
+    inputs, eager, captured and replayed; the 4-DoF essential graph card
+    against CPU. Returns the ORB run 2's launch counts and the solver
+    rows."""
+    seq = vi_sequence()
+    dev = torch.device("cuda")
+    runs, calls1 = [], {}
+    for r in range(2):
+        prev = runs[0]["system"] if runs else None
+        if prev is not None:
+            calls1 = {name: getattr(getattr(prev, part), attr).graph.calls
+                      for name, (part, attr) in VI_GRAPHS.items()}
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = _vi_run(seq, "orb", graphs_from=prev, record=r == 0)
+        wall = time.perf_counter() - t0
+        run["counts"] = path_counts(
+            ck, f"System(IMU_RGBD, backend='orb'), {VI_FRAMES} frames, run "
+            f"{r + 1}", VI_ORB_KERNELS, allowed=VI_ORB_ALLOWED)
+        f = run["figures"] = vi_figures(seq, run["system"])
+        print(f"inertial orb run {r + 1} ({wall:.1f} s): states "
+              f"{run['states'].count('OK')} of {VI_FRAMES} OK; "
+              + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                            for k, v in f.items()}))
+        check_vi_bars(f"inertial orb run {r + 1}", run["states"], f)
+        runs.append(run)
+    a, b = runs
+    same = _vi_same(a, b)
+    print(f"inertial orb: run 2 against run 1: poses and map bit-identical "
+          f"{same}")
+    check(same, "inertial orb: run 2 differs from run 1")
+    per_frame = {k: round(v / VI_FRAMES, 4) for k, v in b["counts"].items()
+                 if v}
+    calls = {name: getattr(getattr(b["system"], part), attr).calls
+             - calls1[name] for name, (part, attr) in VI_GRAPHS.items()}
+    print("inertial orb timings (host wall, run 2, "
+          f"{VI_FRAMES} frames at {W}x{H}): " + json.dumps(_vi_report(b))
+          + f"; kernel launches per frame {json.dumps(per_frame)}; solver "
+          f"calls in run 2 {json.dumps(calls)}")
+
+    xruns = []
+    for r in range(2):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = _vi_run(seq, "xfeat", graphs_from=xruns[0]["system"] if xruns
+                      else a["system"])
+        wall = time.perf_counter() - t0
+        counts = path_counts(
+            ck, f"System(IMU_RGBD, backend='xfeat'), {VI_FRAMES} frames, "
+            f"run {r + 1}", {"detect_candidates": VI_FRAMES,
+                             "keypoint_desc": VI_FRAMES},
+            allowed=VI_ORB_ALLOWED)
+        f = vi_figures(seq, run["system"])
+        print(f"inertial xfeat run {r + 1} ({wall:.1f} s): states "
+              f"{run['states'].count('OK')} of {VI_FRAMES} OK; figures "
+              "(no bars) " + json.dumps(
+                  {k: (round(v, 6) if isinstance(v, float) else v)
+                   for k, v in f.items()}) + f"; launches {counts}")
+        check(f["imu_initialized"], f"inertial xfeat run {r + 1}: the IMU "
+              "was not initialized")
+        check(all(s == "OK" for s in run["states"][1:]),
+              f"inertial xfeat run {r + 1}: a frame from 1 was not OK")
+        xruns.append(run)
+    same = _vi_same(*xruns)
+    print(f"inertial xfeat: run 2 against run 1 bit-identical {same}; "
+          "timings (run 2): " + json.dumps(_vi_report(xruns[1])))
+    check(same, "inertial xfeat: run 2 differs from run 1")
+
+    rows = inertial_solver_checks(a["inputs"], {
+        name: getattr(getattr(b["system"], part), attr)
+        for name, (part, attr) in VI_GRAPHS.items()})
+    rows["pose_graph_4dof"] = pose_graph_4dof_check(dev)
+    print("inertial solvers: " + json.dumps(rows))
+    return b["counts"], rows
+
+
+
 def run(batch: int, root: str):
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3510,13 +4079,22 @@ def run(batch: int, root: str):
     })
 
     # ---- the ORB backend: extractor and its kernels, RGB-D SLAM, readers ----
-    orb_launches, orb_rows = orb_phase(ck, root, reader_cfg, reader_seq)
+    orb_launches, orb_rows, orb_reloc_lm_err = orb_phase(
+        ck, root, reader_cfg, reader_seq)
+    # the pose LM also against its plain version on the ORB
+    # relocalizations' calls
+    for row in rows_out:
+        if row["name"] == "pose_lm":
+            row["max_abs_err"] = max(row["max_abs_err"], orb_reloc_lm_err)
 
     # ---- stereo: XFeat, ORB, the fisheye rig, rectification ----
     stereo_launches = stereo_phase(ck)
     orb_stereo_launches = orb_stereo_phase(ck)
     fisheye_phase(ck)
     rectification_phase(root)
+
+    # ---- visual-inertial RGB-D: ORB and XFeat Systems, the solvers ----
+    vi_launches, _ = inertial_phase(ck)
 
     # the ORB kernels: launches on the ORB stereo path (its second run)
     for name in ("orb_fast", "orb_describe"):
@@ -3539,6 +4117,8 @@ def run(batch: int, root: str):
         if row["name"] in stereo_launches and row["name"] in (
                 "detect_candidates", "keypoint_desc", "pose_lm", "local_ba"):
             row["stereo_launches"] = stereo_launches[row["name"]]
+        if vi_launches.get(row["name"]):
+            row["imu_rgbd_launches"] = vi_launches[row["name"]]
     print(json.dumps({"kernels": rows_out}))
 
 

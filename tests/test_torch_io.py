@@ -13,7 +13,8 @@ and against ``cv2`` itself.
   ``_load_opencv_yaml`` builds with pyyaml, on all nine shipped configs.
 - ``Settings.from_yaml``: field for field JAX's on the pinhole configs, in
   lenient and per-sensor strict mode, with its required-parameter error;
-  the fisheye and IMU configs raise naming their ROADMAP items.
+  the IMU section as JAX reads it (or JAX's error, read as IMU_RGBD); the
+  monocular and stereo inertial sensors raise naming ROADMAP item 15b.
 """
 
 import glob
@@ -258,11 +259,41 @@ def test_settings_from_yaml_required_parameters(tmp_path):
 
 
 @pytest.mark.parametrize("name,sensor,item", [
-    ("tum1_rgbd", "IMU_RGBD", "15"),
-    ("euroc_mono_inertial", None, "15"),
-    ("euroc_mono", "IMU_MONOCULAR", "15"),
-    ("euroc_mono", "IMU_STEREO", "15"),
+    ("euroc_mono", "IMU_MONOCULAR", "15b"),
+    ("euroc_mono", "IMU_STEREO", "15b"),
 ])
 def test_settings_from_yaml_unported_sections_raise(name, sensor, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tset.Settings.from_yaml(_config(name), sensor)
+
+
+@pytest.mark.parametrize("name,sensor", [
+    # the IMU section, read leniently: key for key as JAX
+    ("euroc_mono_inertial", None),
+    # no RGB-D section: JAX's SettingsError
+    ("euroc_mono_inertial", "IMU_RGBD"),
+    # no IMU section: JAX's SettingsError
+    ("tum1_rgbd", "IMU_RGBD"),
+])
+def test_settings_from_yaml_imu_section(name, sensor):
+    """The IMU section (calibration, extrinsic, rate, InsertKFsWhenLost) as
+    JAX reads it, or JAX's required-parameter error."""
+    try:
+        js = jset.Settings.from_yaml(_config(name), sensor)
+    except jset.SettingsError as e:
+        with pytest.raises(tset.SettingsError) as got:
+            tset.Settings.from_yaml(_config(name), sensor)
+        assert str(got.value) == str(e)
+        return
+    ts = tset.Settings.from_yaml(_config(name), sensor)
+    for f in ("noise_gyro", "noise_acc", "walk_gyro", "walk_acc"):
+        assert getattr(ts.imu, f) == getattr(js.imu, f), f
+    for f in ("R_bc", "t_bc"):
+        np.testing.assert_array_equal(getattr(ts.imu, f),
+                                      getattr(js.imu, f), err_msg=f)
+        assert getattr(ts.imu, f).dtype == np.float32
+    for f in ("imu_frequency", "insert_kfs_when_lost", "imu_init_time",
+              "viba1_time", "viba2_time", "fps", "n_features"):
+        assert getattr(ts, f) == getattr(js, f), f
+    np.testing.assert_allclose(ts.cam.params_list(),
+                               [float(v) for v in js.cam], rtol=1e-6)

@@ -15,7 +15,9 @@ package on ``utils/synthetic.make_loop_map`` at the size of
   the JAX package's after the correction and its GBA. The same holds for
   the budgeted GBA (the port's three ticks against the JAX package's
   ``flush``, with a keyframe made during the session) and for two maps of
-  one scene welded by a merge (the same merges, remaps and keyframes).
+  one scene welded by a merge (the same merges, remaps and keyframes), and
+  for an IMU-initialized map, whose loop goes through the 4-DoF essential
+  graph (poses within 1e-4 m).
 - On the port alone: no loop without a revisit; the budgeted GBA aborts
   when the map's geometry epoch moves; a culled keyframe leaves the index.
 
@@ -185,6 +187,44 @@ def test_corrected_poses_match_jax(closed):
     after = np.mean([np.linalg.norm(m.keyframes[k].t - gt[k][1])
                      for k in m.keyframes])
     assert after < 0.85 * before, (after, before)
+
+
+def test_inertial_loop_uses_the_4dof_graph_as_jax():
+    """TestInertialLoop on both packages: an IMU-initialized map (a
+    temporal chain, translation-only drift) closes its loop through the
+    4-DoF essential graph; the port, fed the JAX draws, closes the same
+    loop with the same poses, and meets that test's bars (the tail error
+    shrinks, every update a yaw about world z and a translation)."""
+    jm, gt, est = jsyn.make_loop_map(
+        np.random.default_rng(0),
+        drift_xi=np.array([1.0, 0.3, -0.5, 0, 0, 0], np.float32))
+    prev = -1
+    for kid in sorted(jm.keyframes):
+        jm.keyframes[kid].prev_kf = prev
+        jm.keyframes[kid].vel = np.zeros(3, np.float32)
+        prev = kid
+    jm.imu_initialized = True
+    tm = port_copy(jm)
+    R_wc_before = {k: tm.keyframes[k].R.T.copy() for k in tm.keyframes}
+    j = jlc.LoopClosing(jm, JCAM, fix_scale=True, confirmations=1,
+                        run_gba=False, **GATES)
+    t = tlc.LoopClosing(tm, TCAM, fix_scale=True, confirmations=1,
+                        run_gba=False, **TGATES)
+    t._minimal_sets = jax_draws
+    for kid in sorted(jm.keyframes):
+        j.process_keyframe(kid)
+        t.process_keyframe(kid)
+    assert t.closed == j.closed and len(t.closed) >= 1
+    assert_same_poses(tm, jm, atol=1e-4)
+    tail = sorted(tm.keyframes)[-3:]
+    err_b = np.mean([np.linalg.norm(est[k][1] - gt[k][1]) for k in tail])
+    err_a = np.mean([np.linalg.norm(tm.keyframes[k].t - gt[k][1])
+                     for k in tail])
+    assert err_a < 0.6 * err_b, (err_a, err_b)
+    for k, kf in tm.keyframes.items():
+        dW = kf.R.T @ R_wc_before[k].T
+        assert abs(dW[2, 2] - 1.0) < 1e-4, (k, dW)
+        assert np.abs([dW[0, 2], dW[1, 2], dW[2, 0], dW[2, 1]]).max() < 5e-3
 
 
 def test_no_false_loop_without_revisit():

@@ -118,11 +118,11 @@ def test_port_and_smoke_script_import_no_jax():
         "from xfeatslam_tpu_torch import _build\n"
         "from xfeatslam_tpu_torch.models import xfeat, weights, extractor\n"
         "from xfeatslam_tpu_torch.ops import image, detect, matching, cuda_kernels\n"
-        "from xfeatslam_tpu_torch.ops import lie, camera\n"
+        "from xfeatslam_tpu_torch.ops import lie, camera, imu\n"
         "from xfeatslam_tpu_torch.ops import geometry\n"
         "from xfeatslam_tpu_torch.optim import pose_opt, track_step, local_ba\n"
         "from xfeatslam_tpu_torch.optim import pnp, pose_graph, sim3\n"
-        "from xfeatslam_tpu_torch.optim import two_view\n"
+        "from xfeatslam_tpu_torch.optim import two_view, inertial, viba\n"
         "from xfeatslam_tpu_torch.parallel import batched\n"
         "from xfeatslam_tpu_torch.utils import synthetic, io, timing, verbose\n"
         "from xfeatslam_tpu_torch.utils import opencv_yaml, png, rectification\n"

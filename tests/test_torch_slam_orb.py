@@ -32,6 +32,7 @@ from xfeatslam_tpu_torch.examples import rgbd_tum  # noqa: E402
 from xfeatslam_tpu_torch.models import orb as torb  # noqa: E402
 from xfeatslam_tpu_torch.ops import camera as tc  # noqa: E402
 from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from xfeatslam_tpu_torch.ops.imu import ImuCalib  # noqa: E402
 from xfeatslam_tpu_torch.slam import serialization as tser  # noqa: E402
 from xfeatslam_tpu_torch.slam import settings as tset  # noqa: E402
 from xfeatslam_tpu_torch.slam import system as tsys  # noqa: E402
@@ -180,10 +181,19 @@ def test_use_orb_selects_orb(monkeypatch):
     assert s.local_mapping.tri_max_dist == 600.0
     with pytest.raises(ValueError, match="backend"):
         tsys.System(settings, tsys.Sensor.RGBD, backend="sift", device="cpu")
-    for sensor, item in ((tsys.Sensor.IMU_STEREO, "15"),
-                         (tsys.Sensor.IMU_RGBD, "15")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tsys.System(settings, sensor, backend="orb", device="cpu")
+    settings.imu = ImuCalib(R_bc=np.eye(3, dtype=np.float32),
+                            t_bc=np.zeros(3, np.float32))
+    with pytest.raises(NotImplementedError, match="item 15b"):
+        tsys.System(settings, tsys.Sensor.IMU_STEREO, backend="orb",
+                    device="cpu")
+    # an ORB IMU_RGBD System: the ORB profile, the IMU on both threads, the
+    # inertial split tracking path (no two-stage step in inertial mode)
+    s = tsys.System(settings, tsys.Sensor.IMU_RGBD, backend="orb",
+                    enable_loop_closing=False, device="cpu")
+    assert s.backend == "orb" and s.tracking.cfg.binary
+    assert s.tracking.imu_calib is settings.imu
+    assert s.local_mapping.imu_calib is settings.imu
+    assert s.tracking._track_graph is None and s.tracking._pre_graph is None
 
 
 def test_orb_extractor_defaults_to_cuda():

@@ -30,11 +30,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 from xfeatslam_tpu.ops import camera as jc  # noqa: E402
+from xfeatslam_tpu.ops import imu as jimu  # noqa: E402
 from xfeatslam_tpu.slam import settings as jset  # noqa: E402
 from xfeatslam_tpu.slam import system as jsys  # noqa: E402
 from xfeatslam_tpu.utils import synthetic as jsyn  # noqa: E402
 from xfeatslam_tpu_torch.ops import camera as tc  # noqa: E402
 from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from xfeatslam_tpu_torch.ops.imu import ImuCalib  # noqa: E402
 from xfeatslam_tpu_torch.optim import track_step  # noqa: E402
 from xfeatslam_tpu_torch.slam import map as tmap  # noqa: E402
 from xfeatslam_tpu_torch.slam import serialization as tser  # noqa: E402
@@ -154,38 +156,65 @@ def _settings():
 
 @pytest.mark.parametrize("kwargs,item", [
     # the monocular sensor is ported; its inertial samples are not
-    (dict(sensor=tsys.Sensor.MONOCULAR, imu_samples=True), "15"),
-    (dict(sensor=tsys.Sensor.STEREO, imu_samples=True), "15"),
-    (dict(sensor=tsys.Sensor.IMU_MONOCULAR), "15"),
-    (dict(sensor=tsys.Sensor.IMU_STEREO), "15"),
-    (dict(sensor=tsys.Sensor.IMU_RGBD), "15"),
+    (dict(sensor=tsys.Sensor.MONOCULAR, imu_samples=True), "15b"),
+    (dict(sensor=tsys.Sensor.STEREO, imu_samples=True), "15b"),
+    (dict(sensor=tsys.Sensor.IMU_MONOCULAR), "15b"),
+    (dict(sensor=tsys.Sensor.IMU_STEREO), "15b"),
     # the ORB backend and the stereo sensor are ported; stereo's inertial
     # samples are not
-    (dict(backend="orb", sensor=tsys.Sensor.STEREO, imu_samples=True), "15"),
-    # loop closing is ported; its inertial branch (the 4-DoF essential
-    # graph of an IMU-initialized map) is not
-    (dict(enable_loop_closing=True, imu_initialized=True), "15"),
+    (dict(backend="orb", sensor=tsys.Sensor.STEREO, imu_samples=True),
+     "15b"),
     (dict(viewer_dir="/nonexistent"), "16"),
 ])
 def test_unported_configurations_raise(kwargs, item):
     kw = dict(enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     sensor = kw.pop("sensor", tsys.Sensor.RGBD)
-    inertial = kw.pop("imu_initialized", False)
     imu_samples = kw.pop("imu_samples", False)
+    settings = _settings()
+    settings.imu = ImuCalib(R_bc=np.eye(3, dtype=np.float32),
+                            t_bc=np.zeros(3, np.float32))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        system = tsys.System(_settings(), sensor, **kw)
+        system = tsys.System(settings, sensor, **kw)
         if imu_samples and sensor == tsys.Sensor.STEREO:
             system.track_stereo(np.zeros(HW, np.uint8), np.zeros(HW, np.uint8),
                                 0.0, imu=[(np.zeros(3), np.zeros(3), 0.0)])
         elif imu_samples:
             system.track_monocular(np.zeros(HW, np.uint8), 0.0,
                                    imu=[(np.zeros(3), np.zeros(3), 0.0)])
-        if inertial:
-            system.map.imu_initialized = True
-            system.loop_closing._optimize_essential_graph(
-                0, 0, 1.0, np.eye(3, dtype=np.float32),
-                np.zeros(3, np.float32))
+
+
+def test_imu_rgbd_system_wired_as_jax():
+    """System(IMU_RGBD) builds as the JAX package's: the IMU calibration is
+    required, tracking and local mapping get it with the settings' IMU
+    schedule, loop closing fixes the scale; both packages raise the same
+    error without an IMU section."""
+    settings = _settings()
+    jsettings = jset.Settings(cam=jc.Pinhole.from_list(CAMP), **SETTINGS)
+    for s, sys_mod in ((settings, tsys), (jsettings, jsys)):
+        kw = dict(device="cpu") if sys_mod is tsys else {}
+        with pytest.raises(ValueError, match="requires an IMU section"):
+            sys_mod.System(s, sys_mod.Sensor.IMU_RGBD, **kw)
+    settings.imu = ImuCalib(R_bc=np.eye(3, dtype=np.float32),
+                            t_bc=np.zeros(3, np.float32))
+    jsettings.imu = jimu.ImuCalib(R_bc=np.eye(3, dtype=np.float32),
+                                  t_bc=np.zeros(3, np.float32))
+    for s in (settings, jsettings):
+        s.imu_init_time, s.viba1_time, s.viba2_time = 1.0, 2.0, 2.5
+    ts = tsys.System(settings, tsys.Sensor.IMU_RGBD, device="cpu")
+    js = jsys.System(jsettings, jsys.Sensor.IMU_RGBD)
+    assert ts.imu_calib is settings.imu
+    assert ts.tracking.imu_calib is settings.imu
+    assert ts.tracking.sensor == js.tracking.sensor == "rgbd"
+    for name in ("imu_init_time", "viba1_time", "viba2_time", "imu_min_kfs",
+                 "mono"):
+        assert (getattr(ts.local_mapping, name)
+                == getattr(js.local_mapping, name)), name
+    assert ts.local_mapping.imu_calib is settings.imu
+    assert ts.loop_closing.fix_scale == js.loop_closing.fix_scale is True
+    assert (ts.tracking.cfg.insert_kfs_when_lost
+            == js.tracking.cfg.insert_kfs_when_lost)
+    assert not ts.is_lost() and ts.get_time_from_imu_init() == 0.0
 
 
 def test_unported_paths_raise(runs, tmp_path):
@@ -200,7 +229,7 @@ def test_unported_paths_raise(runs, tmp_path):
         ur=np.full(4, -1.0, np.float32), depth=np.zeros(4, np.float32),
         R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
         pre_kf=object()))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 15b"):
         tser.save_map(m, str(tmp_path / "m.npz"))
     with pytest.raises(NotImplementedError, match="item 16"):
         ts.export_map_html(str(tmp_path / "map.html"))
@@ -211,10 +240,20 @@ def test_unported_paths_raise(runs, tmp_path):
     assert tset.Settings(camera_type="KannalaBrandt8").cam is None
     img = np.zeros(HW, np.uint8)
     assert _settings().rectify(img, img)[0] is img
-    with pytest.raises(NotImplementedError, match="item 15"):
-        runs["port_sys"].tracking.grab_rgbd(
-            np.zeros(HW, np.uint8), np.zeros(HW, np.float32), 99.0,
-            imu=[(np.zeros(3), np.zeros(3), 98.9)])
+    # IMU samples given to an RGB-D tracker without an IMU are queued and
+    # never read, as the JAX package's tracker does
+    samples = [(np.ones(3), np.zeros(3), 98.9), (np.zeros(3), np.ones(3),
+                                                  99.0)]
+    tq = runs["port_sys"].tracking
+    jq = runs["jax_sys"].tracking
+    for tr in (tq, jq):
+        n = len(tr.imu_queue)
+        tr._queue_imu(samples)
+        got = tr.imu_queue[n:]
+        del tr.imu_queue[n:]
+        assert [s[0] for s in got] == [98.9, 99.0]
+        assert all(s[1].dtype == np.float32 for s in got)
+    assert tq.imu_calib is None and jq.imu_calib is None
     with pytest.raises(FileNotFoundError):
         mono_tum_vi.main(["examples/configs/tum_vi_mono.yaml", "seq"])
 

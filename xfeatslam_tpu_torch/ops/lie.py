@@ -220,6 +220,22 @@ def normalize_rotation(R):
     return torch.where(det[..., None, None] > 0, Rn, mat_mul(u_fixed, vt))
 
 
+def project_rotation(R, iters: int = 4):
+    """``normalize_rotation`` for near-rotations without an SVD: Newton's
+    polar iteration X <- (X + X^-T) / 2, with X^-T as the cofactor matrix
+    (rows' cross products) over the determinant. It converges to the
+    polar factor U V^T, the SVD projection, quadratically; a CUDA SVD
+    synchronizes with the host, and this can be captured in a CUDA graph."""
+    for _ in range(iters):
+        r0, r1, r2 = R[..., 0, :], R[..., 1, :], R[..., 2, :]
+        cof = torch.stack([torch.linalg.cross(r1, r2),
+                           torch.linalg.cross(r2, r0),
+                           torch.linalg.cross(r0, r1)], -2)
+        det = (r0 * cof[..., 0, :]).sum(-1)
+        R = 0.5 * (R + cof / det[..., None, None])
+    return R
+
+
 def np_normalize_rotation(R):
     """Host-side (numpy, float64) SO3 projection, for rotations written at
     the tracking and map boundaries: float32 rotation chains lose

@@ -16,8 +16,10 @@ problem), on the CPU and on the card alike: a scatter-add would add in the
 order its atomics land on the card. The small products are broadcast
 multiply-and-sum, never ``@``.
 
-Only the 7-dof Sim3 mode is ported; the inertial 4-dof mode
-(OptimizeEssentialGraph4DoF) waits for ROADMAP item 15.
+``mode="4dof"`` is the inertial essential graph
+(OptimizeEssentialGraph4DoF): SE3 edges weighted as the reference's
+matLambda, and vertices that move only in yaw about the gravity-aligned
+world z and in translation.
 """
 
 from __future__ import annotations
@@ -62,6 +64,35 @@ def _apply(s, R, t, d):
     return lie.sim3_compose(ds, dR, dt, s, R, t)
 
 
+# sqrt information of 4-DoF edges: the reference weights the two
+# gravity-constrained rotation axes 1e3 (matLambda)
+_W4 = (31.622776, 31.622776, 1.0, 1.0, 1.0, 1.0)
+
+
+def _edge_residual_4dof(si, Ri, ti, sj, Rj, tj, ms, mR, mt):
+    """The SE3 edge residual in this module's m = T_j T_i^-1 convention:
+    E = m T_i T_j^-1, r = [log_so3(E_R); E_t] (the Edge4DoF error), whitened
+    by matLambda. The scales are ignored (SE3). (...,6)."""
+    Rij = lie.mat_mul(Ri, Rj.transpose(-1, -2))  # T_i T_j^-1
+    tij = ti - mat_vec(Rij, tj)
+    eR = lie.so3_log(lie.mat_mul(mR, Rij))
+    et = mt + mat_vec(mR, tij)
+    w = torch.tensor(_W4, dtype=eR.dtype).to(eR.device)
+    return torch.cat([eR, et], -1) * w
+
+
+def _apply_4dof(s, R, t, d):
+    """The 4-D world-frame update [dyaw, dt]: yaw about the gravity-aligned
+    world +z only (roll and pitch pinned by the IMU) and a world
+    translation (VertexPose4DoF::oplusImpl). The scale stays."""
+    zero = torch.zeros_like(d[..., 0])
+    dR = lie.so3_exp(torch.stack([zero, zero, d[..., 0]], -1))
+    R_wc = R.transpose(-1, -2)
+    C = -mat_vec(R_wc, t)
+    R2 = lie.mat_mul(dR, R_wc).transpose(-1, -2)
+    return s, R2, -mat_vec(R2, C + d[..., 1:4])
+
+
 def _vertex_rows(edge_i, edge_j, n_vertices: int, device):
     """(C, D) rows into the 2E edge ends [i-ends, j-ends], each vertex's
     ends in edge order, padded with 2E (a zero row)."""
@@ -80,15 +111,16 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
                         cg_iters: int = 50, mode: str = "sim3"):
     """LM over all free vertices. Returns the optimized (s, R, t).
 
-    mode="sim3": 7-dof Sim3 vertices (OptimizeEssentialGraph). The "4dof"
-    mode of the JAX package (yaw and translation, the inertial essential
-    graph) is not ported."""
-    if mode != "sim3":
-        raise NotImplementedError(
-            f"pose graph mode {mode!r}: the inertial 4-DoF essential graph "
-            "waits for ROADMAP item 15")
+    mode="sim3": 7-dof Sim3 vertices (OptimizeEssentialGraph).
+    mode="4dof": yaw and translation vertices with the scale, roll and
+    pitch frozen, the inertial essential graph (gravity has pinned roll
+    and pitch, the IMU the scale)."""
+    if mode not in ("sim3", "4dof"):
+        raise ValueError(f"pose graph mode {mode!r}: 'sim3' or '4dof'")
     C = prob.s.shape[0]
-    D = 7
+    D = 7 if mode == "sim3" else 4
+    edge_res = _edge_residual if mode == "sim3" else _edge_residual_4dof
+    apply_one = _apply if mode == "sim3" else _apply_4dof
     dtype, dev = prob.R.dtype, prob.R.device
     free = (~prob.fixed) & prob.cam_valid
     free_f = free[:, None].to(dtype)
@@ -105,18 +137,18 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
         return ends[rows].sum(1)
 
     def residuals(s, R, t):
-        return _edge_residual(s[ei], R[ei], t[ei], s[ej], R[ej], t[ej],
+        return edge_res(s[ei], R[ei], t[ei], s[ej], R[ej], t[ej],
                               prob.m_s, prob.m_R, prob.m_t)
 
     def apply_delta(s, R, t, dx):
         """dx: (C,D) tangent, applied on the free vertices."""
-        s2, R2, t2 = _apply(s, R, t, dx)
+        s2, R2, t2 = apply_one(s, R, t, dx)
         return (torch.where(free, s2, s),
                 torch.where(free[:, None, None], R2, R),
                 torch.where(free[:, None], t2, t))
 
     def edge_jacobians(s, R, t):
-        """J_i, J_j: (E,7,D) with respect to the delta of vertex i / j: one
+        """J_i, J_j: (E,RD,D) with respect to the delta of vertex i / j: one
         forward-mode product over the edges times the D tangent directions
         (a batch, not a vmap: on 0-dim tensors torch's forward mode
         promotes some tangents to float64)."""
@@ -132,10 +164,10 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
         def jac(fn):
             return torch.func.jvp(fn, (dz,), (dirs,))[1].transpose(-1, -2)
 
-        Ji = jac(lambda d: _edge_residual(*_apply(si, Ri, ti, d), sj, Rj, tj,
-                                          ms, mR, mt))
-        Jj = jac(lambda d: _edge_residual(si, Ri, ti, *_apply(sj, Rj, tj, d),
-                                          ms, mR, mt))
+        Ji = jac(lambda d: edge_res(*apply_one(si, Ri, ti, d), sj, Rj, tj,
+                                    ms, mR, mt))
+        Jj = jac(lambda d: edge_res(si, Ri, ti, *apply_one(sj, Rj, tj, d),
+                                    ms, mR, mt))
         return Ji, Jj
 
     def total_cost(s, R, t):
@@ -143,7 +175,7 @@ def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
         return (w_e * (r * r).sum(-1)).sum()
 
     def JtV(J, v):
-        """J^T v per edge: (E,7,D), (E,7) -> (E,D)."""
+        """J^T v per edge: (E,RD,D), (E,RD) -> (E,D)."""
         return (J * v[..., None]).sum(-2)
 
     s, R, t = prob.s, prob.R, prob.t

@@ -61,6 +61,11 @@ class Frame:
     t: Optional[np.ndarray] = None
     mp_ids: np.ndarray = None  # (K,) int64 map-point binding, -1 free
     inlier: np.ndarray = None  # (K,) bool after pose opt
+    # inertial state of the frame
+    v_w: Optional[np.ndarray] = None  # (3,) body velocity in world
+    bg: Optional[np.ndarray] = None  # (3,) gyro bias
+    ba: Optional[np.ndarray] = None  # (3,) acc bias
+    pre_last: object = None  # Preintegrated from the previous frame
 
     def __post_init__(self):
         K = len(self.kpts)

@@ -1,8 +1,8 @@
 """LoopClosing: place recognition, Sim3 verification, loop correction, map
 merging, and the global bundle adjustment after a loop.
 
-Counterpart of ``xfeatslam_tpu/slam/loop_closing.py`` without the inertial
-branches (the role of ORB-SLAM3's LoopClosing.cc): per new keyframe, query
+Counterpart of ``xfeatslam_tpu/slam/loop_closing.py`` (the role of
+ORB-SLAM3's LoopClosing.cc): per new keyframe, query
 the retrieval index for candidates, verify them geometrically (descriptor
 matching, Sim3 RANSAC, Sim3 refinement, SearchBySim3, Sim3-guided
 projection counts, temporal consistency), then correct the loop (carry
@@ -17,8 +17,10 @@ padded to power-of-two buckets, so a few graphs serve every map size), and
 every result is read to the host through ``track_step.fetch``. The RANSAC
 draws come from ``torch.multinomial`` with a generator seeded by the
 keyframe id (``kid + 7777`` for merges), where the JAX package seeds a JAX
-PRNG key the same way (``_minimal_sets``). The inertial parts (the 4-DoF
-essential graph and the welding inertial BA) wait for ROADMAP item 15.
+PRNG key the same way (``_minimal_sets``). On an IMU-initialized map the
+essential graph is the 4-DoF one (yaw and translation,
+``optimize_pose_graph(mode="4dof")``); a merge with an inertial map (its
+welding inertial BA) waits for ROADMAP item 15b.
 
 ``_search_by_sim3`` keys its mutual map by the kf1 slot as the JAX package
 does (ROADMAP trap T.3): kept for parity.
@@ -42,7 +44,7 @@ from .retrieval import Retrieval, global_desc_dim
 
 PAIR_BUCKET = 512  # padded matched map-point pairs for Sim3 verification
 RANSAC_ITERS = 128
-_INERTIAL = "the inertial loop closing waits for ROADMAP item 15"
+_INERTIAL = "merging inertial maps waits for ROADMAP item 15b"
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -518,8 +520,6 @@ class LoopClosing:
         included whatever their weight and measured from the corrected
         estimates."""
         m = self.map
-        if m.imu_initialized:
-            raise NotImplementedError(_INERTIAL)
         kids = sorted(m.keyframes)
         if len(kids) < 3:
             return
@@ -598,7 +598,11 @@ class LoopClosing:
             m_t=pad(np.stack(m_t), E, 0.0, np.float32),
             e_valid=pad(np.ones(n_e, bool), E, False),
         )
-        s1, R1, t1 = fetch(pg.optimize_pose_graph(prob))
+        # an IMU-initialized map has gravity pinning roll and pitch and the
+        # IMU pinning the scale: only yaw and translation move
+        # (OptimizeEssentialGraph4DoF)
+        mode = "4dof" if m.imu_initialized else "sim3"
+        s1, R1, t1 = fetch(pg.optimize_pose_graph(prob, mode=mode))
 
         # apply: keyframe SE3 = [R | t/s]; points by their reference
         # keyframe's correction

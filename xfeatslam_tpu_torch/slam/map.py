@@ -43,8 +43,9 @@ class KeyFrame:
     # retrieval descriptor: VLAD over a fixed random codebook
     # (retrieval.aggregate_global_desc), in place of a BoW vector
     global_desc: np.ndarray = None
-    # inertial state (velocity, biases, preintegration from prev_kf); the
-    # inertial modes are not ported, so these stay at their defaults
+    # inertial state: body velocity in world (None until IMU
+    # initialization), gyro / acc bias, the preintegration from prev_kf
+    # (ops.imu.Preintegrated of numpy arrays) and the chain predecessor
     vel: Optional[np.ndarray] = None
     bg: np.ndarray = None
     ba: np.ndarray = None
@@ -177,6 +178,28 @@ class SlamMap:
         self.imu_ba2 = False
         self.imu_bg = np.zeros(3, np.float32)
         self.imu_ba = np.zeros(3, np.float32)
+
+    def apply_scaled_rotation(self, R_wg: np.ndarray, s: float):
+        """Map::ApplyScaledRotation: rotate the world so gravity becomes
+        (0,0,-9.81) and rescale it to metric.
+
+        Convention: new world X' = s * R_wg^T @ X, so camera poses become
+        R_cw' = R_cw @ R_wg, t_cw' = s * t_cw (camera-frame geometry scales
+        uniformly by s) and velocities v' = s * R_wg^T @ v."""
+        R_wg = np.asarray(R_wg, np.float32)
+        s = float(s)
+        for kf in self.keyframes.values():
+            kf.R = (kf.R @ R_wg).astype(np.float32)
+            kf.t = (s * kf.t).astype(np.float32)
+            if kf.vel is not None:
+                kf.vel = (s * (R_wg.T @ kf.vel)).astype(np.float32)
+        alive = self.points.alive
+        self.points.pos[alive] = s * (self.points.pos[alive] @ R_wg)
+        self.points.normal[alive] = self.points.normal[alive] @ R_wg
+        self.points.dmin[alive] *= s
+        self.points.dmax[alive] *= s
+        self.change_index += 1
+        self.geometry_epoch += 1
 
     # -- keyframes ---------------------------------------------------------
 

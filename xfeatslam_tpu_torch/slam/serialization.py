@@ -16,9 +16,9 @@ JAX package's loader does not read: each keyframe's keypoint octaves
 (the JAX package's) loads with zeros there, as the JAX package loads it;
 the atlas takes the maps' pyramid geometry from their headers.
 
-The keyframes' inertial preintegrations (``kf{kid}_pre``) wait for the
-inertial modes (ROADMAP item 15): a file that holds one raises on load,
-and a keyframe that carries one raises on save.
+The keyframes' inertial preintegrations (``kf{kid}_pre``), the inertial
+atlas files, wait for ROADMAP item 15b: a file that holds one raises on
+load, and a keyframe that carries one raises on save.
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ FORMAT_VERSION = 1
 # the checksum's namespace: the JAX package's name, so both packages accept
 # each other's files
 _CHECKSUM_TAG = "xfeatslam_tpu"
-_PREINTEGRATION = ("keyframe preintegrations (the inertial modes) wait for "
-                   "ROADMAP item 15")
+_PREINTEGRATION = ("keyframe preintegrations in atlas files wait for "
+                   "ROADMAP item 15b")
 
 
 def _config_checksum(desc_dim: int) -> str:

@@ -6,9 +6,10 @@ from the reference's OpenCV-YAML files by ``from_yaml`` (through
 KannalaBrandt8 cameras; the stereo rig (camera 2, ``Stereo.T_c1_c2`` or
 ``Stereo.b``, the fisheye lapping columns); an unrectified pinhole rig's
 rectification maps by ``precompute_rectification`` and ``rectify``
-(``utils/rectification``, numpy in place of ``cv2``). Not ported yet: the
-IMU section and the inertial sensors (ROADMAP item 15), which raise
-``NotImplementedError``.
+(``utils/rectification``, numpy in place of ``cv2``); the IMU section
+(``ops/imu.ImuCalib``, the IMU rate and the initialization schedule). Of
+the inertial sensors IMU_RGBD is read; IMU_MONOCULAR and IMU_STEREO raise
+``NotImplementedError`` naming ROADMAP item 15b.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..ops.camera import KannalaBrandt8, Pinhole
+from ..ops.imu import ImuCalib
 from ..utils import opencv_yaml
 from ..utils import rectification
 
 _INERTIAL = ("IMU_MONOCULAR", "IMU_STEREO", "IMU_RGBD")
+_UNPORTED_INERTIAL = ("IMU_MONOCULAR", "IMU_STEREO")
 
 
 class SettingsError(ValueError):
@@ -80,8 +83,15 @@ class Settings:
     min_th_fast: int = 7
     # depth beyond this never becomes a map point (System.thFarPoints)
     th_far_points: Optional[float] = None
-    # inertial calibration: the inertial modes are not ported (item 15)
-    imu: object = None
+    # inertial calibration (readIMU); None for vision-only configs
+    imu: Optional[ImuCalib] = None
+    imu_frequency: float = 200.0
+    insert_kfs_when_lost: bool = True
+    # the IMU initialization schedule: first init, VIBA1, VIBA2 (seconds of
+    # keyframe chain)
+    imu_init_time: float = 1.0
+    viba1_time: float = 5.0
+    viba2_time: float = 15.0
     raw: Dict = field(default_factory=dict)
 
     def __post_init__(self):
@@ -93,9 +103,10 @@ class Settings:
                 raise TypeError(f"camera {type(c).__module__}."
                                 f"{type(c).__name__}: the port's Pinhole or "
                                 "KannalaBrandt8 is needed")
-        if self.imu is not None:
-            raise NotImplementedError(
-                "an IMU section: the inertial modes wait for ROADMAP item 15")
+        if self.imu is not None and not isinstance(self.imu, ImuCalib):
+            raise TypeError(f"imu {type(self.imu).__module__}."
+                            f"{type(self.imu).__name__}: the port's ImuCalib "
+                            "is needed")
 
     @staticmethod
     def from_yaml(path: str, sensor=None) -> "Settings":
@@ -104,18 +115,19 @@ class Settings:
         extractor and system sections; an unrectified pinhole stereo rig's
         rectification maps). sensor: None (lenient) or MONOCULAR / STEREO
         / RGBD (enum or string), which turns on the reference's
-        required-parameter errors for that sensor's sections. An IMU
-        section or inertial sensor raises naming item 15."""
+        required-parameter errors for that sensor's sections (IMU_RGBD
+        too). IMU_MONOCULAR and IMU_STEREO raise naming item 15b."""
         d = opencv_yaml.load(path)
         if hasattr(sensor, "name"):
             sensor = sensor.name
-        if sensor in _INERTIAL:
+        if sensor in _UNPORTED_INERTIAL:
             raise NotImplementedError(
-                f"sensor {sensor}: the inertial modes wait for ROADMAP "
-                "item 15")
+                f"sensor {sensor}: monocular and stereo inertial wait for "
+                "ROADMAP item 15b")
         strict = sensor is not None
         stereo = sensor == "STEREO"
-        rgbd = sensor == "RGBD"
+        rgbd = sensor in ("RGBD", "IMU_RGBD")
+        inertial = sensor in _INERTIAL
 
         def get(*names, default=None, required=False):
             for n in names:
@@ -237,9 +249,25 @@ class Settings:
         get("Camera.RGB", required=True)
 
         # IMU (readIMU, Settings.cc:414-433)
-        if get("IMU.NoiseGyro") is not None:
-            raise NotImplementedError(
-                "an IMU section: the inertial modes wait for ROADMAP item 15")
+        if get("IMU.NoiseGyro") is not None or inertial:
+            T = get("IMU.T_b_c1", "Tbc", required=inertial)
+            T = np.eye(4, dtype=np.float32) if T is None else _as_matrix(T)
+            s.imu = ImuCalib(
+                noise_gyro=float(get("IMU.NoiseGyro", required=inertial,
+                                     default=1.7e-4)),
+                noise_acc=float(get("IMU.NoiseAcc", required=inertial,
+                                    default=2e-3)),
+                walk_gyro=float(get("IMU.GyroWalk", required=inertial,
+                                    default=1.9e-5)),
+                walk_acc=float(get("IMU.AccWalk", required=inertial,
+                                   default=3e-3)),
+                R_bc=np.ascontiguousarray(T[:3, :3]),
+                t_bc=np.ascontiguousarray(T[:3, 3]),
+            )
+            s.imu_frequency = float(get("IMU.Frequency", required=inertial,
+                                        default=200.0))
+            s.insert_kfs_when_lost = bool(get("IMU.InsertKFsWhenLost",
+                                              default=1))
 
         # RGB-D (readRGBD, Settings.cc:434-442)
         if rgbd or get("RGBD.DepthMapFactor", "DepthMapFactor") is not None:
@@ -296,6 +324,10 @@ class Settings:
                 K2, self.dist2, R2, P2[:3, :3], size))
         self.cam = Pinhole.from_list([P1[0, 0], P1[1, 1], P1[0, 2], P1[1, 2]])
         self.bf = self.baseline * float(P1[0, 0])
+        # the IMU extrinsic follows the rectifying rotation
+        if self.imu is not None:
+            R_bc = self.imu.R_bc @ np.asarray(R1, np.float32).T
+            self.imu = self.imu._replace(R_bc=R_bc.astype(np.float32))
 
     def rectify(self, img_l: np.ndarray, img_r: np.ndarray):
         """The precomputed rectification maps applied to a uint8 stereo

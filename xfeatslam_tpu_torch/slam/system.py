@@ -14,9 +14,14 @@ trajectory savers and the tracked-state getters are here. The feature
 backend is XFeat or ORB (``backend="orb"`` or ``USE_ORB``). A STEREO
 session takes rectified pairs (``track_stereo``; ``Settings.rectify``
 rectifies a raw pinhole pair first) and runs the RGB-D tracker on their
-stereo depth, as the JAX package's System does. Not ported yet, each
-raising ``NotImplementedError`` with its ROADMAP item: the inertial
-sensors (item 15) and the viewer and map export (item 16).
+stereo depth, as the JAX package's System does. An IMU_RGBD session
+(``Settings.imu`` required) passes each frame's IMU samples to
+``track_rgbd(..., imu=...)``: tracking preintegrates them and, once local
+mapping has initialized the IMU (rotating and rescaling the map, which the
+System hands on to tracking), solves visual-inertial poses. Not ported yet,
+each raising ``NotImplementedError`` with its ROADMAP item: the monocular
+and stereo inertial sensors (item 15b) and the viewer and map export (item
+16).
 """
 
 from __future__ import annotations
@@ -53,10 +58,10 @@ class Sensor(enum.Enum):
     IMU_RGBD = 5
 
 
+_INERTIAL = {Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD}
 _UNPORTED_SENSORS = {
-    Sensor.IMU_MONOCULAR: "the inertial modes wait for ROADMAP item 15",
-    Sensor.IMU_STEREO: "the inertial modes wait for ROADMAP item 15",
-    Sensor.IMU_RGBD: "the inertial modes wait for ROADMAP item 15",
+    Sensor.IMU_MONOCULAR: "monocular inertial waits for ROADMAP item 15b",
+    Sensor.IMU_STEREO: "stereo inertial waits for ROADMAP item 15b",
 }
 
 
@@ -70,7 +75,8 @@ class System:
         """backend: "xfeat" or "orb" (the reference's USE_ORB switch); None
         reads the ``USE_ORB`` environment variable, as the JAX package does.
         enable_loop_closing (with mapping) builds LoopClosing, as in the
-        JAX package. device: where the tensors live, CUDA unless given."""
+        JAX package. device: where the tensors live, CUDA unless given.
+        An inertial sensor needs the settings' IMU section."""
         if sensor in _UNPORTED_SENSORS:
             raise NotImplementedError(
                 f"sensor {sensor.name}: {_UNPORTED_SENSORS[sensor]}")
@@ -80,6 +86,12 @@ class System:
             raise ValueError(f"backend {backend!r}: 'xfeat' or 'orb'")
         if viewer_dir is not None or viewer_port is not None:
             raise NotImplementedError("the viewer waits for ROADMAP item 16")
+        # the inertial calibration, required by the IMU_* sensors
+        self.imu_calib = settings.imu if sensor in _INERTIAL else None
+        if sensor in _INERTIAL and self.imu_calib is None:
+            raise ValueError(
+                f"sensor {sensor.name} requires an IMU section in the config "
+                "(IMU.NoiseGyro/NoiseAcc/GyroWalk/AccWalk + IMU.T_b_c1)")
         self.device = resolve_device(device)
         self.backend = backend
         self.timer = StageTimer()
@@ -114,7 +126,8 @@ class System:
                             th_far_points=settings.th_far_points,
                             binary=profile.binary, th_high=profile.th_high,
                             th_low=profile.th_low, n_levels=n_levels,
-                            scale_factor=scale_factor)
+                            scale_factor=scale_factor,
+                            insert_kfs_when_lost=settings.insert_kfs_when_lost)
         self.loop_closing = None
         if enable_loop_closing and enable_mapping:
             # the scale is observable with depth or a stereo rig, not from
@@ -133,16 +146,22 @@ class System:
             timer=self.timer,
             retrieval=(self.loop_closing.retrieval
                        if self.loop_closing is not None else None),
-            sensor="mono" if sensor == Sensor.MONOCULAR else "rgbd")
+            sensor="mono" if sensor == Sensor.MONOCULAR else "rgbd",
+            imu_calib=self.imu_calib)
         self.local_mapping = None
         if enable_mapping:
-            self.local_mapping = LocalMapping(self.map, settings.cam,
-                                              settings.bf, self.device,
-                                              profile=profile)
+            self.local_mapping = LocalMapping(
+                self.map, settings.cam, settings.bf, self.device,
+                profile=profile, imu_calib=self.imu_calib,
+                imu_init_time=settings.imu_init_time,
+                viba1_time=settings.viba1_time,
+                viba2_time=settings.viba2_time)
 
     def track_rgbd(self, gray: np.ndarray, depth_raw: np.ndarray,
                    timestamp: float, imu=None):
-        """Returns (state, (R,t) world->camera or None)."""
+        """Returns (state, (R,t) world->camera or None). imu: the (acc (3,),
+        gyro (3,), t) samples since the previous frame (System::TrackRGBD's
+        vImuMeas)."""
         with self.timer.span("track"):
             state, pose = self.tracking.grab_rgbd(gray, depth_raw, timestamp,
                                                   imu=imu)
@@ -210,6 +229,12 @@ class System:
             if (self.loop_closing is not None
                     and self.loop_closing.map is not self.map):
                 self._adopt_merged_map()
+            # an IMU initialization rotated and rescaled the whole map: move
+            # the tracker's frame-local state the same way
+            if self.local_mapping.pending_map_transform is not None:
+                s, R_wg = self.local_mapping.pending_map_transform
+                self.local_mapping.pending_map_transform = None
+                self.tracking.apply_map_transform(s, R_wg)
             # the backend may have moved keyframes (local BA, loop
             # correction, GBA): re-base the tracker's last-frame pose on
             # its reference KF
@@ -432,7 +457,7 @@ class System:
 
     def is_lost(self) -> bool:
         """The inertial loss flag (System::isLost): False until IMU
-        initialization, which the port's RGB-D system never runs."""
+        initialization."""
         if not self.map.imu_initialized:
             return False
         return self.tracking.state == State.LOST

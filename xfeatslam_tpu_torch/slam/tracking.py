@@ -31,8 +31,16 @@ RANSAC, the pose LM and the guided widening ladder); localization mode
 visual odometry on the last frame's depth points off the map
 (``vo_mode``).
 
-Not ported yet, raising ``NotImplementedError`` where it would run: the
-inertial modes (ROADMAP item 15).
+Visual-inertial RGB-D tracking (``imu_calib``): IMU samples are queued
+(``grab_imu``) and preintegrated between frames (``ops/imu``, a CUDA graph
+per window bucket on the card); once the map is IMU-initialized the pose is
+predicted from the last keyframe's state and solved by the visual-inertial
+pose LMs (``optim/inertial``: anchored to the last keyframe, or chained
+through the previous frame's marginalized prior), each a CUDA graph on the
+card. Inertial frames take the split path (projection matching, then the
+pose solve), as in the JAX package. Not ported yet, raising
+``NotImplementedError`` where it would run: IMU samples with monocular or
+stereo frames (ROADMAP item 15b).
 """
 
 from __future__ import annotations
@@ -46,10 +54,13 @@ import numpy as np
 import torch
 
 from ..ops import camera as camera_ops
+from ..ops import imu as imu_ops
 from ..ops import lie
 from ..ops import image as image_ops
 from ..ops import matching
+from ..optim import inertial as in_opt
 from ..optim import local_ba, pnp, pose_opt, track_step, two_view
+from ..optim.inertial import np_body_to_cam, np_cam_to_body
 from ..optim.track_step import fetch
 from .frame import (DEPTH_EDGE_REL, STEREO_MAX_DISP, STEREO_MIN_DISP,
                     STEREO_TH_XFEAT, Frame, FramePipeline)
@@ -137,6 +148,9 @@ class TrackerConfig:
     # reference-KF matching threshold: generous for float descriptors, the
     # raw TH_HIGH for ORB; None picks by the profile
     refkf_max_dist: Optional[float] = None
+    # keep anchoring the inertial chain with keyframes while RECENTLY_LOST
+    # (IMU.InsertKFsWhenLost)
+    insert_kfs_when_lost: bool = True
     # relocalization acceptance: inliers after the guided widening ladder
     reloc_min_inliers: int = 50
 
@@ -149,7 +163,8 @@ class TrackerConfig:
 class Tracking:
     def __init__(self, pipeline: FramePipeline, slam_map: SlamMap,
                  cam: camera_ops.Pinhole, config: TrackerConfig, atlas,
-                 timer=None, retrieval=None, sensor: str = "rgbd"):
+                 timer=None, retrieval=None, sensor: str = "rgbd",
+                 imu_calib: Optional[imu_ops.ImuCalib] = None):
         """sensor: "rgbd" (RGB-D and stereo frames, which carry depth) or
         "mono". timer: an optional ``utils.timing.StageTimer`` that
         receives the spans ``track.frame_build`` (a frame built outside the
@@ -160,10 +175,14 @@ class Tracking:
         and their one host read). retrieval:
         the keyframe database that relocalization queries (loop closing's;
         None without it, and candidates come from a brute-force cosine over
-        the keyframes' global descriptors)."""
+        the keyframes' global descriptors). imu_calib: the IMU calibration
+        of visual-inertial RGB-D tracking (None without an IMU)."""
         if sensor not in ("rgbd", "mono"):
             raise NotImplementedError(
                 f"sensor {sensor!r}: stereo waits for ROADMAP item 14")
+        if imu_calib is not None and sensor != "rgbd":
+            raise NotImplementedError(
+                "monocular inertial tracking waits for ROADMAP item 15b")
         self.sensor = sensor
         self.pipeline = pipeline
         self.map = slam_map
@@ -181,6 +200,29 @@ class Tracking:
             if on_card and self._xfeat else None)
         self._track_graph = (track_step.TwoStageTrackGraph(self.device)
                              if on_card else None)
+        # inertial state (GrabImuData / PreintegrateIMU): the sample queue,
+        # the preintegrations last KF -> last frame and last KF -> current
+        # frame, and the marginalized last-frame prior (R_wb, p_wb, v_w, bg,
+        # ba, sqrt-information (15,15), the map's change_index)
+        self.imu_calib = imu_calib
+        self.imu_queue: List[Tuple[float, np.ndarray, np.ndarray]] = []
+        self._pre_from_kf = None
+        self._pre_cur = None
+        self._frame_prior = None
+        self._prior_pending = None
+        # on the card: preintegration and both inertial pose LMs as CUDA
+        # graphs
+        inertial_card = on_card and imu_calib is not None
+        self._pre_graph = (in_opt.InertialGraph(self.device,
+                                                imu_ops.preintegrate)
+                           if inertial_card else None)
+        self._pose_inertial_graph = (
+            in_opt.InertialGraph(self.device, in_opt.pose_inertial_flat)
+            if inertial_card else None)
+        self._pose_inertial_lf_graph = (
+            in_opt.InertialGraph(self.device,
+                                 in_opt.pose_inertial_last_frame_flat)
+            if inertial_card else None)
         self.last_kf_id: Optional[int] = None  # most recent created KF
         self.retrieval = retrieval
         self.atlas = atlas
@@ -223,9 +265,10 @@ class Tracking:
     # ------------------------------------------------------------------ API
 
     def grab_rgbd(self, gray, depth_raw, timestamp, imu=None):
-        if imu:
-            raise NotImplementedError(
-                "IMU samples: the inertial modes wait for ROADMAP item 15")
+        """imu: the (acc (3,), gyro (3,), t) samples since the previous
+        frame; a tracker without ``imu_calib`` queues and never reads
+        them, as the JAX package's does."""
+        self._queue_imu(imu)
         frame = self._grab_rgbd_fused(gray, depth_raw, timestamp)
         if frame is None:
             with self._span("track.frame_build"):
@@ -238,7 +281,8 @@ class Tracking:
         then drives the RGB-D initialization and point creation."""
         if imu:
             raise NotImplementedError(
-                "IMU samples: the inertial modes wait for ROADMAP item 15")
+                "IMU samples with stereo frames: stereo inertial waits for "
+                "ROADMAP item 15b")
         frame = self._grab_stereo_fused(gray_l, gray_r, timestamp)
         if frame is None:
             with self._span("track.frame_build"):
@@ -250,20 +294,34 @@ class Tracking:
         grab_rgbd."""
         if imu:
             raise NotImplementedError(
-                "IMU samples: the inertial modes wait for ROADMAP item 15")
+                "IMU samples with monocular frames: monocular inertial waits "
+                "for ROADMAP item 15b")
         frame = self._grab_rgbd_fused(gray, None, timestamp)
         if frame is None:
             with self._span("track.frame_build"):
                 frame = self.pipeline.build_mono(gray, timestamp)
         return self._track(frame)
 
+    def grab_imu(self, acc, gyro, timestamp: float):
+        """GrabImuData: enqueue one IMU sample (body-frame acc m/s^2, gyro
+        rad/s)."""
+        self.imu_queue.append((float(timestamp),
+                               np.asarray(acc, np.float32),
+                               np.asarray(gyro, np.float32)))
+
+    def _queue_imu(self, imu):
+        if imu:
+            for (acc, gyro, t) in imu:
+                self.grab_imu(acc, gyro, t)
+
     def _fused_grab_setup(self, timestamp):
         """Preconditions and speculative inputs of the whole-frame step: the
-        XFeat backend (float descriptors), a pinhole camera, OK state, a
-        monotonic timestamp; the motion-model pose prediction and the
+        XFeat backend (float descriptors), a pinhole camera, OK state, no
+        IMU, a monotonic timestamp; the motion-model pose prediction and the
         stage-1 / stage-2 snapshots voted from the LAST frame's bindings."""
         last = self.last_frame
-        if (self.state != State.OK or self.only_tracking or last is None
+        if (self.state != State.OK or self.imu_calib is not None
+                or self.only_tracking or last is None
                 or last.R is None or self.cfg.binary or not self._xfeat
                 or timestamp < last.timestamp  # would start a new map
                 or type(self.cam) is not camera_ops.Pinhole):
@@ -393,10 +451,53 @@ class Tracking:
 
     # ------------------------------------------------------------ internals
 
+    def _current_bias(self):
+        kf = self.map.keyframes.get(self.last_kf_id)
+        if kf is not None and kf.bg is not None:
+            return kf.bg, kf.ba
+        return self.map.imu_bg, self.map.imu_ba
+
+    def _preintegrate(self, frame: Frame):
+        """PreintegrateIMU: integrate the queued samples in (t_last, t_cur]
+        at the current bias estimate; keep both the last-frame segment and
+        the accumulation from the last keyframe."""
+        t_cur = frame.timestamp
+        if self.last_frame is None:
+            self.imu_queue = [s for s in self.imu_queue if s[0] > t_cur]
+            frame.pre_last = None
+            self._pre_cur = None
+            return
+        t_prev = self.last_frame.timestamp
+        take = [s for s in self.imu_queue if t_prev < s[0] <= t_cur + 1e-9]
+        self.imu_queue = [s for s in self.imu_queue if s[0] > t_cur + 1e-9]
+        seg = None
+        if take:
+            bg, ba = self._current_bias()
+            ts = np.array([s[0] for s in take])
+            dts = np.diff(np.concatenate([[t_prev], ts])).astype(np.float32)
+            seg = imu_ops.preintegrate_segment(
+                np.stack([s[1] for s in take]),
+                np.stack([s[2] for s in take]),
+                dts, bg, ba, self.imu_calib, device=self.device,
+                graph=self._pre_graph)
+        frame.pre_last = seg
+        if seg is not None:
+            if self._pre_from_kf is None:
+                self._pre_cur = seg
+            else:
+                self._pre_cur = imu_ops.to_numpy(imu_ops.merge_previous(
+                    imu_ops.to_tensors(self._pre_from_kf, "cpu"),
+                    imu_ops.to_tensors(seg, "cpu")))
+        else:
+            self._pre_cur = self._pre_from_kf
+
     def _track(self, frame: Frame):
         if self._check_timestamp_jump(frame):
             self.last_frame = frame
             return self.state, None
+        self._prior_pending = None  # only this frame's solve may set it
+        if self.imu_calib is not None:
+            self._preintegrate(frame)
         if self.state in (State.NO_IMAGES, State.NOT_INITIALIZED):
             self.state = State.NOT_INITIALIZED
             init = (self._initialize_rgbd(frame) if self.sensor == "rgbd"
@@ -481,6 +582,21 @@ class Tracking:
                     frame.R = self.last_frame.R.copy()
                     frame.t = self.last_frame.t.copy()
                 self.velocity = None
+                # inertial: keep anchoring the preintegration chain with
+                # keyframes at the IMU-predicted pose, so the map can absorb
+                # the dead-reckoned stretch once tracking recovers
+                # (InsertKFsWhenLost)
+                last_kf = self.map.keyframes.get(self.last_kf_id)
+                if (self.state == State.RECENTLY_LOST
+                        and self.cfg.insert_kfs_when_lost
+                        and not self.only_tracking
+                        and self.imu_calib is not None
+                        and self.map.imu_initialized
+                        and frame.R is not None
+                        and self._pre_cur is not None
+                        and last_kf is not None
+                        and frame.timestamp - last_kf.timestamp >= 0.25):
+                    self._create_keyframe(frame)
 
         if frame.R is not None:
             self.trajectory.append(
@@ -488,6 +604,14 @@ class Tracking:
             )
             self._log_relative_pose(frame)
         self.last_frame = frame
+        if self.imu_calib is not None:
+            # roll the from-last-KF accumulation forward (None right after a
+            # keyframe was made from this frame: the accumulator restarts)
+            self._pre_from_kf = self._pre_cur
+        # this frame's marginalized posterior becomes the next frame's
+        # prior; a failed frame breaks the chain
+        self._frame_prior = (self._prior_pending if self.state == State.OK
+                             else None)
         pose = (frame.R, frame.t) if frame.R is not None else None
         return self.state, pose
 
@@ -556,17 +680,19 @@ class Tracking:
         if m is not self.map:
             self.atlas.change_map(m.map_id)
             self.map = m
-        inl = self._pose_optimize(frame)
+        # visual only: the IMU anchor is dead-reckoned from the lost
+        # stretch and would drag the candidate pose back toward it
+        inl = self._pose_optimize(frame, visual_only=True)
         # the guided widening ladder: short of 50 inliers, re-search the
         # candidate's neighbourhood by projection in a wide window and
         # re-optimize; a second narrow round when close
         if inl < 50:
             if self._reloc_widen(frame, m, kid, radius=10.0, dist_scale=2.0):
-                inl = self._pose_optimize(frame)
+                inl = self._pose_optimize(frame, visual_only=True)
             if 30 <= inl < 50:
                 if self._reloc_widen(frame, m, kid, radius=3.0,
                                      dist_scale=1.28):
-                    inl = self._pose_optimize(frame)
+                    inl = self._pose_optimize(frame, visual_only=True)
         if inl >= self.cfg.reloc_min_inliers:
             self.ref_kf = kid
             self.lost_since = None
@@ -799,7 +925,37 @@ class Tracking:
 
     # -- pose tracking -------------------------------------------------------
 
+    def _imu_anchor(self):
+        """The inertial anchor state: the most recent keyframe with a
+        velocity estimate (mpLastKeyFrame). Returns (kf, R_wb, p_wb), or
+        None before IMU initialization."""
+        if not (self.imu_calib is not None and self.map.imu_initialized):
+            return None
+        kf = self.map.keyframes.get(self.last_kf_id)
+        if kf is None or kf.vel is None or self._pre_cur is None:
+            return None
+        cal = self.imu_calib
+        R_wb, p_wb = np_cam_to_body(kf.R, kf.t, cal.R_bc, cal.t_bc)
+        return kf, R_wb, p_wb
+
     def _predict_pose(self, frame: Frame):
+        anchor = self._imu_anchor()
+        if anchor is not None:
+            # PredictStateIMU: the last keyframe's state propagated through
+            # the accumulated preintegration at the keyframe's bias
+            kf, R_wb, p_wb = anchor
+            cal = self.imu_calib
+            R0, p0, v0, bg, ba = (torch.from_numpy(np.asarray(a, np.float32))
+                                  for a in (R_wb, p_wb, kf.vel, kf.bg, kf.ba))
+            R_nb, p_nb, v_nb = imu_ops.predict_state(
+                R0, p0, v0, imu_ops.to_tensors(self._pre_cur, "cpu"), bg, ba)
+            R_nb = lie.np_normalize_rotation(R_nb.numpy())
+            frame.R, frame.t = np_body_to_cam(R_nb, p_nb.numpy(), cal.R_bc,
+                                              cal.t_bc)
+            frame.v_w = v_nb.numpy().astype(np.float32)
+            frame.bg = kf.bg.copy()
+            frame.ba = kf.ba.copy()
+            return
         if self.velocity is not None:
             Rv, tv = self.velocity
             # the SO3 projection keeps float32 orthonormality error from
@@ -824,13 +980,17 @@ class Tracking:
         ok &= (u >= -20) & (u < cx * 2 + 20) & (v >= -20) & (v < cy * 2 + 20)
         return np.stack([u, v], -1).astype(np.float32), ok
 
-    def _pose_optimize(self, frame: Frame) -> int:
+    def _pose_optimize(self, frame: Frame, visual_only: bool = False) -> int:
         bound = frame.mp_ids >= 0
         ids = np.where(bound, frame.mp_ids, 0)
         Xw = self.map.points.pos[ids]
         alive = self.map.points.alive[ids]
         valid = bound & frame.valid & alive
         is_stereo = valid & (frame.ur > 0)
+        anchor = None if visual_only else self._imu_anchor()
+        if anchor is not None:
+            return self._pose_optimize_inertial(frame, anchor, Xw, is_stereo,
+                                                valid)
         res = fetch(pose_opt.pose_optimization(
             self._t(frame.R), self._t(frame.t), self._t(Xw),
             self._t(frame.kpts_un), self._t(frame.ur),
@@ -843,6 +1003,109 @@ class Tracking:
         # drop outlier bindings
         frame.mp_ids = np.where(frame.inlier, frame.mp_ids, -1)
         return int(res.num_inliers)
+
+    def _pose_optimize_inertial(self, frame: Frame, anchor, Xw, is_stereo,
+                                valid) -> int:
+        """PoseInertialOptimization: the joint 15-D body state from the
+        reprojection edges and an inertial edge. When the map has not
+        changed since the previous frame solved, the LastFrame variant runs
+        (the previous frame a free state under its marginalized prior,
+        Schur-eliminated after); otherwise the solve anchors to the last
+        keyframe (the reference's mbMapUpdated switch). On the card each
+        variant replays its CUDA graph."""
+        kf, R_wb_i, p_wb_i = anchor
+        cal = self.imu_calib
+        R_wb_j, p_wb_j = np_cam_to_body(frame.R, frame.t, cal.R_bc, cal.t_bc)
+        v_j = frame.v_w if frame.v_w is not None else kf.vel
+        prior = self._frame_prior
+        use_prior = (prior is not None and frame.pre_last is not None
+                     and float(frame.pre_last.dt) > 0
+                     and self.map.change_index == prior[-1])
+        t = self._t
+        visual = (t(Xw.astype(np.float32)), t(frame.kpts_un), t(frame.ur),
+                  t(self._inv_sigma2(frame)), t(is_stereo), t(valid),
+                  t(cal.R_bc.astype(np.float32)),
+                  t(cal.t_bc.astype(np.float32)))
+        if use_prior:
+            (Rp, pp, vp, bgp, bap, Lp, _chg) = prior
+            states = (R_wb_j, p_wb_j, v_j, bgp, bap, Rp, pp, vp, bgp, bap, Lp)
+            pre = imu_ops.to_tensors(frame.pre_last, self.device)
+            fn, graph = (in_opt.pose_inertial_last_frame_flat,
+                         self._pose_inertial_lf_graph)
+        else:
+            # the accumulated preintegration re-linearized at the anchor's
+            # bias, so the bias-walk edge measures drift from the KF's bias
+            pre = imu_ops.relinearize(
+                imu_ops.to_tensors(self._pre_cur, self.device),
+                t(kf.bg), t(kf.ba))
+            states = (R_wb_j, p_wb_j, v_j, kf.bg, kf.ba, R_wb_i, p_wb_i,
+                      kf.vel)
+            fn, graph = (in_opt.pose_inertial_flat, self._pose_inertial_graph)
+        flat = (tuple(t(np.asarray(a, np.float32)) for a in states)
+                + tuple(pre) + visual)
+        static = dict(cam=self.cam, bf=float(self.pipeline.bf))
+        res = graph(flat, **static) if graph is not None else fn(*flat,
+                                                                 **static)
+        res = fetch(res)
+        R_wb = lie.np_normalize_rotation(res.R_wb)
+        frame.R, frame.t = np_body_to_cam(R_wb, res.p_wb, cal.R_bc, cal.t_bc)
+        frame.v_w = np.asarray(res.v_w, np.float32)
+        frame.bg = np.asarray(res.bg, np.float32)
+        frame.ba = np.asarray(res.ba, np.float32)
+        frame.inlier = res.inliers
+        frame.mp_ids = np.where(frame.inlier, frame.mp_ids, -1)
+        # the solved posterior becomes the next frame's prior (promoted at
+        # the frame's end: a second solve within this frame must still see
+        # the previous frame's prior)
+        H = np.asarray(res.H, np.float64)
+        try:
+            L = np.linalg.cholesky(
+                0.5 * (H + H.T) + 1e-4 * np.eye(15)).astype(np.float32)
+            self._prior_pending = (
+                R_wb.copy(), np.asarray(res.p_wb, np.float32),
+                frame.v_w.copy(), frame.bg.copy(), frame.ba.copy(), L,
+                self.map.change_index)
+        except np.linalg.LinAlgError:
+            self._prior_pending = None
+        return int(res.num_inliers)
+
+    def _match_against(self, frame: Frame, pos, desc, ids, valid_mp,
+                       radius: float, keep_existing: bool, mp_angle=None,
+                       radius_scale=None, oct_lo=None, oct_hi=None) -> int:
+        """Project map points, match them into frame slots and bind mp_ids
+        (the split path of inertial tracking). radius_scale: an optional
+        (M,) multiplier on ``radius`` (the predicted octave's pyramid
+        factor); oct_lo / oct_hi: optional (M,) octave windows of the
+        candidate keypoints."""
+        uv, vis = self._project_points(frame.R, frame.t, pos)
+        valid_mp = valid_mp & vis
+        kpt_free = (frame.mp_ids < 0 if keep_existing
+                    else np.ones(len(frame.kpts_un), bool))
+        r = (radius if radius_scale is None
+             else self._t((radius * radius_scale).astype(np.float32)))
+        oct_kw = {}
+        if oct_lo is not None:
+            oct_kw = dict(kpt_octave=self._t(frame.octave.astype(np.int32)),
+                          oct_lo=self._t(oct_lo.astype(np.int32)),
+                          oct_hi=self._t(oct_hi.astype(np.int32)))
+        res = matching.search_by_projection(
+            self._t(uv), self._t(desc.astype(np.float32)), self._t(valid_mp),
+            self._t(frame.kpts_un), self._t(frame.desc),
+            self._t(frame.valid), radius=r, max_dist=self.cfg.th_high,
+            ratio=0.9, kpt_free=self._t(kpt_free), binary=self.cfg.binary,
+            **oct_kw)
+        idx, mask = fetch((res.idx, res.mask))
+        if mp_angle is not None:
+            mask = matching.rotation_consistency_filter(
+                mp_angle, frame.angle, np.clip(idx, 0, None), mask)
+        n = 0
+        for m in np.nonzero(mask)[0]:
+            slot = idx[m]
+            if keep_existing and frame.mp_ids[slot] >= 0:
+                continue
+            frame.mp_ids[slot] = ids[m]
+            n += 1
+        return n
 
     def _inv_sigma2(self, frame: Frame):
         sigma2 = self.cfg.obs_sigma ** 2 * (
@@ -912,7 +1175,10 @@ class Tracking:
             frame._fused_pending = None
             return self._apply_fused_two_stage(frame, *pend)
         last = self.last_frame
-        if self.only_tracking or last is None or last.R is None:
+        # inertial frames take the split path: their pose solve is the
+        # visual-inertial one
+        if (self.imu_calib is not None or self.only_tracking or last is None
+                or last.R is None):
             return None
         with self._span("track.snapshot"):
             ids = self._local_map_points(last)
@@ -982,11 +1248,15 @@ class Tracking:
     def _track_with_motion_model(self, frame: Frame) -> bool:
         """TrackWithMotionModel: constant-velocity prediction, the last
         frame's points projected, widened x2 on failure, pose LM; at least
-        10 inliers. One match-and-pose step on the device."""
+        10 inliers. One match-and-pose step on the device; inertial
+        tracking keeps the split path (``_track_with_motion_model_split``),
+        its pose solve being the visual-inertial one."""
         if self.last_frame is None or self.last_frame.R is None:
             return False
         self._predict_pose(frame)
         last = self.last_frame
+        if self.imu_calib is not None:
+            return self._track_with_motion_model_split(frame, last)
         bound = (last.mp_ids >= 0) & last.inlier
         ids = np.where(bound, last.mp_ids, 0)
         valid_mp = bound & self.map.points.alive[ids]
@@ -1016,6 +1286,37 @@ class Tracking:
         if self._last_n_matched < self.cfg.min_inliers_motion:
             return False
         return inl >= 10
+
+    def _track_with_motion_model_split(self, frame: Frame, last: Frame):
+        """The motion model's split path: projection matching (scale gates
+        from the last observation's octave, widened x2 below 20 matches),
+        then the pose solve."""
+        bound = (last.mp_ids >= 0) & last.inlier
+        ids = last.mp_ids.copy()
+        safe = np.where(bound, ids, 0)
+        pos = self.map.points.pos[safe]
+        valid_mp = bound & self.map.points.alive[safe]
+        desc = self.map.points.desc[safe]
+        frame.mp_ids[:] = -1
+        mp_angle = self.map.points.angle[safe]
+        oct_kw = {}
+        if self.cfg.n_levels > 1:
+            lo = last.octave.astype(np.int32)
+            oct_kw = dict(
+                radius_scale=self.cfg.scale_factor ** lo.astype(np.float32),
+                oct_lo=lo - 1, oct_hi=lo + 1)
+        n = self._match_against(frame, pos, desc, ids, valid_mp,
+                                self.cfg.motion_radius, keep_existing=False,
+                                mp_angle=mp_angle, **oct_kw)
+        if n < 20:
+            frame.mp_ids[:] = -1
+            n = self._match_against(frame, pos, desc, ids, valid_mp,
+                                    self.cfg.motion_radius * 2,
+                                    keep_existing=False, mp_angle=mp_angle,
+                                    **oct_kw)
+        if n < self.cfg.min_inliers_motion:
+            return False
+        return self._pose_optimize(frame) >= 10
 
     def _vo_candidates(self, last: Frame, free: np.ndarray):
         """Visual-odometry points of localization mode (the reference's
@@ -1116,18 +1417,42 @@ class Tracking:
             [i >= 0 and int(i) not in bound_set for i in padded_ids], bool)
         self.map.points.visible[ids[self.map.points.alive[ids]]] += 1
         safe_ids = np.clip(padded_ids, 0, None)
-        inl = self._fused_step(
-            frame, pos, desc, valid & fresh,
-            self.map.points.angle[safe_ids],
-            self.map.points.octave[safe_ids], padded_ids,
-            radius=self.cfg.local_radius, widen_below=0,
-            dmax=self.map.points.dmax[safe_ids],
-            keep_existing=True, scale_gate=True,
-        )
+        if self.imu_calib is not None:
+            inl = self._track_local_map_split(frame, pos, desc, valid & fresh,
+                                              padded_ids)
+        else:
+            inl = self._fused_step(
+                frame, pos, desc, valid & fresh,
+                self.map.points.angle[safe_ids],
+                self.map.points.octave[safe_ids], padded_ids,
+                radius=self.cfg.local_radius, widen_below=0,
+                dmax=self.map.points.dmax[safe_ids],
+                keep_existing=True, scale_gate=True,
+            )
         found = frame.mp_ids[(frame.mp_ids >= 0) & frame.inlier]
         self.map.points.found[found] += 1
         self.matches_inliers = inl
         return inl >= self.cfg.min_inliers_local
+
+    def _track_local_map_split(self, frame: Frame, pos, desc, valid,
+                               padded_ids) -> int:
+        """The local map's split path: projection matching with the
+        predicted-scale gates (radius by the predicted octave's factor,
+        candidates within [pred-1, pred]), then the pose solve."""
+        safe_ids = np.clip(padded_ids, 0, None)
+        oct_kw = {}
+        if self.cfg.n_levels > 1:
+            C = -frame.R.T @ frame.t
+            dist = np.linalg.norm(self.map.points.pos[safe_ids] - C, axis=-1)
+            pred = self.map.predict_scale(safe_ids, dist)
+            oct_kw = dict(
+                radius_scale=self.cfg.scale_factor ** pred.astype(np.float32),
+                oct_lo=pred - 1, oct_hi=pred)
+        self._match_against(frame, pos, desc, padded_ids, valid,
+                            self.cfg.local_radius, keep_existing=True,
+                            mp_angle=self.map.points.angle[safe_ids],
+                            **oct_kw)
+        return self._pose_optimize(frame)
 
     # -- trajectory logs -------------------------------------------------------
 
@@ -1177,6 +1502,22 @@ class Tracking:
         self.last_frame.R = lie.np_normalize_rotation(R_rel @ kf.R)
         self.last_frame.t = (R_rel @ kf.t + t_rel).astype(np.float32)
 
+    def apply_map_transform(self, s: float, R_wg: np.ndarray):
+        """The backend rescaled and rotated the map (IMU initialization,
+        Map::ApplyScaledRotation): move the tracker's frame-local state the
+        same way, so the next motion step matches the moved map."""
+        lf = self.last_frame
+        if lf is not None and lf.R is not None:
+            lf.R = lie.np_normalize_rotation(lf.R @ R_wg)
+            lf.t = (s * lf.t).astype(np.float32)
+            if lf.v_w is not None:
+                lf.v_w = (s * (R_wg.T @ lf.v_w)).astype(np.float32)
+        if self._rel_pose is not None:
+            kid, R_rel, t_rel = self._rel_pose
+            self._rel_pose = (kid, R_rel, (s * t_rel).astype(np.float32))
+        self.velocity = None  # the scale changed: constant velocity is stale
+        self._frame_prior = None  # its mean is in the old frame
+
     def _update_velocity(self, frame: Frame):
         lf = self.last_frame
         if lf is not None and lf.R is not None:
@@ -1204,6 +1545,17 @@ class Tracking:
             t=frame.t.copy(),
             mp_ids=frame.mp_ids.copy(),
         )
+        if self.imu_calib is not None:
+            # the inertial chain (CreateNewKeyFrame): the accumulation from
+            # the last keyframe moves onto the new one and restarts here
+            kf.prev_kf = self.last_kf_id if self.last_kf_id is not None else -1
+            kf.pre_kf = self._pre_cur
+            kf.vel = None if frame.v_w is None else frame.v_w.copy()
+            bg, ba = self._current_bias()
+            kf.bg = (frame.bg if frame.bg is not None else bg).copy()
+            kf.ba = (frame.ba if frame.ba is not None else ba).copy()
+            self._pre_from_kf = None
+            self._pre_cur = None
         self.next_kf_id += 1
         self.last_kf_id = kf.kid
         self.map.add_keyframe(kf)
@@ -1242,7 +1594,17 @@ class Tracking:
         c1b = frame.fid >= self.last_kf_frame_id + 3
         c1c = n_tracked < n_ref * 0.25 or need_close
         c2 = (n_tracked < n_ref * ratio or need_close) and n_tracked > 15
-        return (c1a or c1b or c1c) and c2
+        # c3: the inertial chain stays dense whatever the visual redundancy
+        # (>= 0.5 s since the last keyframe)
+        c3 = False
+        if self.imu_calib is not None:
+            last_kf = self.map.keyframes.get(self.last_kf_id)
+            if (last_kf is not None
+                    and frame.timestamp - last_kf.timestamp >= 0.5):
+                c3 = True
+        # c4 (weakly tracked monocular-inertial frames) waits with monocular
+        # inertial tracking for ROADMAP item 15b
+        return ((c1a or c1b or c1c) and c2) or c3
 
     def _create_keyframe(self, frame: Frame):
         """CreateNewKeyFrame: bind the tracked points, then create new close
@@ -1297,13 +1659,21 @@ class Tracking:
     # -- maps ------------------------------------------------------------------
 
     def _check_timestamp_jump(self, frame: Frame) -> bool:
-        """An older-than-previous timestamp starts a new map. Returns True
-        when the frame was consumed by the switch."""
+        """An older-than-previous timestamp starts a new map; a gap > 1 s in
+        inertial mode resets the active map (before VIBA2) or freezes it
+        and starts a new one (after). Returns True when the frame was
+        consumed by the switch."""
         if self.state in (State.NO_IMAGES, State.NOT_INITIALIZED) or \
                 self.last_frame is None:
             return False
         if self.last_frame.timestamp > frame.timestamp:
+            self.imu_queue.clear()
             self._switch_to_new_map(reset_current=False)
+            return True
+        if (self.imu_calib is not None
+                and frame.timestamp > self.last_frame.timestamp + 1.0):
+            keep = self.map.imu_initialized and self.map.imu_ba2
+            self._switch_to_new_map(reset_current=not keep)
             return True
         return False
 
@@ -1316,6 +1686,10 @@ class Tracking:
         self.velocity = None
         self.ref_kf = None
         self._mono_init_frame = None
+        self._frame_prior = None
+        # the inertial chain does not cross maps
+        self._pre_from_kf = None
+        self._pre_cur = None
         self.last_kf_id = None
         self.stats["map_resets"] = self.stats.get("map_resets", 0) + 1
 

@@ -1,9 +1,11 @@
 """Synthetic RGB-D sequences: a ray-cast textured room corner with
 ground-truth poses, for tests and on-card drives.
 
-The port's own copy of ``_texture``, ``RoomScene``, ``orbit_trajectory``
-and ``make_sequence`` from ``xfeatslam_tpu/utils/synthetic.py`` (numpy
-only): the same seed renders the same images and depths bit for bit.
+The port's own copy of ``_texture``, ``RoomScene``, ``orbit_trajectory``,
+``make_sequence``, the visual-inertial ``make_vi_sequence`` and
+``make_imu_trajectory`` from ``xfeatslam_tpu/utils/synthetic.py`` (numpy
+only): the same seed renders the same images and depths and draws the same
+IMU noise, bit for bit.
 """
 
 from __future__ import annotations
@@ -226,6 +228,234 @@ def make_sequence(n_frames: int = 60, hw=(480, 640), K=None, seed: int = 0,
         "poses": poses,
         "K": K,
     }
+
+
+def make_vi_sequence(n_frames: int = 50, fps: float = 10.0,
+                     imu_rate: float = 200.0, hw=(480, 640), K=None,
+                     seed: int = 0, g_dir=None, bg=None, ba=None,
+                     noise_gyro: float = 0.0, noise_acc: float = 0.0,
+                     T_bc: np.ndarray = None, render_depth: bool = True):
+    """Rendered visual-inertial sequence: the RoomScene viewed along a
+    smooth, analytically-differentiable body trajectory with consistent IMU.
+
+    World gravity is 9.81 * g_dir (default tilted, NOT -z, so gravity
+    alignment is non-trivial). Gyro is exact by construction (rotation is
+    integrated from the analytic angular velocity at the IMU rate);
+    accelerometer comes from the analytic second derivative:
+    a_body = R_wb^T (p_ddot - g) + ba + noise.
+
+    Returns dict: images, depths, timestamps, poses (R_cw,t_cw GT),
+    imu (list per frame: samples strictly after the previous frame up to and
+    including this frame, as (acc, gyro, t) tuples), p_wb/R_wb/v_w GT body
+    states at frame times, g_w, K.
+    """
+    if K is None:
+        K = np.array(
+            [[517.3, 0, 318.6], [0, 516.5, 255.3], [0, 0, 1]], np.float32
+        )
+    if T_bc is None:
+        T_bc = np.eye(4, dtype=np.float32)
+    R_bc = T_bc[:3, :3].astype(np.float64)
+    t_bc = T_bc[:3, 3].astype(np.float64)
+    rng = np.random.default_rng(seed)
+    if g_dir is None:
+        g_dir = np.array([0.15, -0.1, -0.98])
+    g_dir = np.asarray(g_dir, np.float64)
+    g_dir /= np.linalg.norm(g_dir)
+    g_w = 9.81 * g_dir
+    bg = np.zeros(3) if bg is None else np.asarray(bg, np.float64)
+    ba = np.zeros(3) if ba is None else np.asarray(ba, np.float64)
+
+    # small-amplitude wander in front of the room corner, looking +z.
+    # Frequencies are chosen for ~1.3 m/s^2 peak acceleration: monocular
+    # scale is observable only through acceleration excitation (the scale
+    # column of the init problem is ~|p_ddot| against the 9.81 gravity
+    # column). At ~0.5 m/s^2 the scale/acc-bias trade-off is nearly flat —
+    # a free-bias solve absorbs ~10% scale error into ~0.1 m/s^2 of bias —
+    # so amplitudes stay small (view keeps the room) while frequencies push
+    # |p_ddot| up without raising the peak velocity (a = v*w).
+    AX, AY, AZ = 0.11, 0.08, 0.05
+    WX, WY, WZ = 3.2, 2.7, 2.2
+
+    def pos(t):
+        return np.array([AX * np.sin(WX * t),
+                         AY * np.cos(WY * t) - AY,
+                         AZ * np.sin(WZ * t) + 0.02 * t])
+
+    def vel(t):
+        return np.array([AX * WX * np.cos(WX * t),
+                         -AY * WY * np.sin(WY * t),
+                         AZ * WZ * np.cos(WZ * t) + 0.02])
+
+    def accel(t):
+        return np.array([-AX * WX * WX * np.sin(WX * t),
+                         -AY * WY * WY * np.cos(WY * t),
+                         -AZ * WZ * WZ * np.sin(WZ * t)])
+
+    def omega(t):  # body angular velocity, keeps the view near +z
+        return np.array([0.09 * np.sin(1.2 * t),
+                         0.11 * np.cos(1.5 * t),
+                         0.07 * np.sin(0.8 * t)])
+
+    def so3_exp(phi):
+        th = np.linalg.norm(phi)
+        Kx = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]],
+                       [-phi[1], phi[0], 0]])
+        if th < 1e-12:
+            return np.eye(3) + Kx
+        return (np.eye(3) + np.sin(th) / th * Kx
+                + (1 - np.cos(th)) / (th * th) * (Kx @ Kx))
+
+    dt = 1.0 / imu_rate
+    frame_dt = 1.0 / fps
+    steps_per_frame = int(round(frame_dt / dt))
+    n_steps = steps_per_frame * (n_frames - 1)
+    # integrate body rotation at the IMU rate
+    R = np.eye(3)
+    Rs = [R.copy()]
+    for i in range(n_steps):
+        R = R @ so3_exp(omega(i * dt) * dt)
+        Rs.append(R.copy())
+    Rs = np.stack(Rs)
+
+    scene = RoomScene(seed=seed)
+    images, depths, poses, imu_lists = [], [], [], []
+    R_wb_gt, p_wb_gt, v_w_gt, ts = [], [], [], []
+    for k in range(n_frames):
+        t_k = k * frame_dt
+        i_k = k * steps_per_frame
+        R_wb = Rs[i_k]
+        p_wb = pos(t_k)
+        # camera pose from the body state
+        R_wc = R_wb @ R_bc
+        C = p_wb + R_wb @ t_bc
+        R_cw = R_wc.T.astype(np.float32)
+        t_cw = (-R_wc.T @ C).astype(np.float32)
+        img, dep = scene.render(K, R_cw, t_cw, hw)
+        images.append(img)
+        depths.append(dep if render_depth else None)
+        poses.append((R_cw, t_cw))
+        R_wb_gt.append(R_wb.astype(np.float32))
+        p_wb_gt.append(p_wb.astype(np.float32))
+        v_w_gt.append(vel(t_k).astype(np.float32))
+        ts.append(t_k)
+        # IMU samples in (t_{k-1}, t_k]
+        samples = []
+        if k > 0:
+            for i in range(i_k - steps_per_frame, i_k):
+                t_i = i * dt
+                a_b = (Rs[i].T @ (accel(t_i) - g_w) + ba
+                       + noise_acc * rng.standard_normal(3))
+                w_b = omega(t_i) + bg + noise_gyro * rng.standard_normal(3)
+                samples.append((a_b.astype(np.float32),
+                                w_b.astype(np.float32),
+                                float(t_i + dt)))
+        imu_lists.append(samples)
+    return dict(
+        images=images, depths=depths, timestamps=ts, poses=poses,
+        imu=imu_lists, R_wb=np.stack(R_wb_gt), p_wb=np.stack(p_wb_gt),
+        v_w=np.stack(v_w_gt), g_w=g_w.astype(np.float32),
+        bg=bg.astype(np.float32), ba=ba.astype(np.float32), K=K,
+    )
+
+
+def make_imu_trajectory(n_kf: int = 16, kf_dt: float = 0.25,
+                        imu_rate: float = 200.0, seed: int = 0,
+                        g_dir=None, bg=None, ba=None,
+                        noise_gyro: float = 0.0, noise_acc: float = 0.0):
+    """Synthetic smooth body trajectory + consistent IMU measurements.
+
+    The world frame's gravity is g = 9.81 * g_dir (default a tilted
+    direction, NOT -z, so gravity-direction estimation is non-trivial).
+    Angular velocity is defined analytically and the rotation is integrated
+    at the IMU rate, so gyro measurements are exact by construction;
+    accelerometer measurements come from the analytic second derivative of
+    the position spline: a_body = R_wb^T (p_ddot - g).
+
+    Returns dict:
+      t_kf (K,), R_wb (K,3,3), p_wb (K,3), v_w (K,3),
+      imu: list of K-1 dicts {acc (N,3), gyro (N,3), dts (N,)} per segment
+      g_w (3,), bg, ba (injected biases, added to the measurements)
+    """
+    rng = np.random.default_rng(seed)
+    if g_dir is None:
+        g_dir = np.array([0.15, -0.1, -0.98])
+    g_dir = np.asarray(g_dir, np.float64)
+    g_dir /= np.linalg.norm(g_dir)
+    g_w = 9.81 * g_dir
+    bg = np.zeros(3) if bg is None else np.asarray(bg, np.float64)
+    ba = np.zeros(3) if ba is None else np.asarray(ba, np.float64)
+
+    def pos(t):
+        return np.array([0.8 * np.sin(0.9 * t),
+                         0.5 * np.cos(0.7 * t),
+                         0.3 * np.sin(0.5 * t) + 0.1 * t])
+
+    def vel(t):
+        return np.array([0.8 * 0.9 * np.cos(0.9 * t),
+                         -0.5 * 0.7 * np.sin(0.7 * t),
+                         0.3 * 0.5 * np.cos(0.5 * t) + 0.1])
+
+    def accel(t):
+        return np.array([-0.8 * 0.81 * np.sin(0.9 * t),
+                         -0.5 * 0.49 * np.cos(0.7 * t),
+                         -0.3 * 0.25 * np.sin(0.5 * t)])
+
+    def omega(t):  # body angular velocity (rad/s), analytic
+        return np.array([0.3 * np.sin(0.6 * t),
+                         0.25 * np.cos(0.8 * t),
+                         0.4 * np.sin(0.4 * t)])
+
+    def so3_exp(phi):
+        th = np.linalg.norm(phi)
+        K = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]],
+                      [-phi[1], phi[0], 0]])
+        if th < 1e-12:
+            return np.eye(3) + K
+        return (np.eye(3) + np.sin(th) / th * K
+                + (1 - np.cos(th)) / (th * th) * (K @ K))
+
+    dt = 1.0 / imu_rate
+    total = (n_kf - 1) * kf_dt
+    n_steps = int(round(total / dt))
+    R = np.eye(3)
+    Rs = [R.copy()]
+    ts = [0.0]
+    for i in range(n_steps):
+        t = i * dt
+        R = R @ so3_exp(omega(t) * dt)
+        Rs.append(R.copy())
+        ts.append((i + 1) * dt)
+    Rs = np.stack(Rs)
+    ts = np.asarray(ts)
+
+    steps_per_seg = int(round(kf_dt / dt))
+    kf_idx = np.arange(n_kf) * steps_per_seg
+    t_kf = ts[kf_idx]
+    R_wb = Rs[kf_idx].astype(np.float32)
+    p_wb = np.stack([pos(t) for t in t_kf]).astype(np.float32)
+    v_w = np.stack([vel(t) for t in t_kf]).astype(np.float32)
+
+    segments = []
+    for k in range(n_kf - 1):
+        i0, i1 = kf_idx[k], kf_idx[k + 1]
+        accs, gyrs, dtss = [], [], []
+        for i in range(i0, i1):
+            t = ts[i]
+            a_w = accel(t) - g_w
+            a_b = Rs[i].T @ a_w + ba + noise_acc * rng.standard_normal(3)
+            w_b = omega(t) + bg + noise_gyro * rng.standard_normal(3)
+            accs.append(a_b)
+            gyrs.append(w_b)
+            dtss.append(dt)
+        segments.append(dict(
+            acc=np.asarray(accs, np.float32),
+            gyro=np.asarray(gyrs, np.float32),
+            dts=np.asarray(dtss, np.float32),
+        ))
+    return dict(t_kf=t_kf, R_wb=R_wb, p_wb=p_wb, v_w=v_w, imu=segments,
+                g_w=g_w.astype(np.float32), bg=bg.astype(np.float32),
+                ba=ba.astype(np.float32))
 
 
 def make_loop_map(rng, n_kf=14, n_pts=400, drift_per_kf=0.012,
