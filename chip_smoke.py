@@ -166,24 +166,46 @@ Phases, each fatal on failure:
      < 5 cm, the last 3 keyframes' velocities within 0.08 m/s, biases
      within 2e-3 and 4e-2, every frame from 1 OK), run 2 (replaying run
      1's graphs) bit-identical to run 1; its wall median and p90, the
-     ``track`` and ``backend`` spans, the launches per frame; the XFeat
-     System on the same run twice (IMU initialized, every frame from 1 OK,
-     detect_candidates and keypoint_desc once per frame, the runs
-     bit-identical; its figures printed without bars); each inertial
+     ``track`` and ``backend`` spans, the launches per frame; the run's
+     atlas saved and loaded (every keyframe's velocity, biases, chain link
+     and preintegration, the map's IMU flags and biases equal); the XFeat
+     System on the same run once (IMU initialized, every frame from 1 OK,
+     detect_candidates and keypoint_desc once per frame; its figures
+     printed without bars); each inertial
      solver (``preintegrate``, both inertial pose LMs, ``inertial_init``,
      ``local_inertial_ba`` on the window and the full chain) on the card
      against the same function on CPU tensors, on run 1's recorded inputs,
      at the CPU tests' bars, with its eager ms, capture wall ms, replay ms,
      device events per call and bound; the 4-DoF essential graph on a
-     12-keyframe loop, card against CPU within 1e-4.
+     12-keyframe loop, card against CPU within 1e-4;
+ 19. visual-inertial monocular and stereo: ``System(Sensor.IMU_MONOCULAR)``
+     on tests/test_inertial_slam.py::TestImuMonocular's run (the same 60
+     frames and Settings) and ``System(Sensor.IMU_STEREO)`` on
+     TestImuStereo's (50 pairs, each right view rendered 8 cm along camera
+     +x, bf = 0.08 fx), ORB twice each, counted (from run 2 exactly one
+     orb_fast and one orb_describe an image), held to their bars
+     (initialized, >= 6 keyframes; scale within 0.08 / 0.03, ATE max
+     < 8 / 6 cm, gravity within 0.5 / 0.4), run 2 bit-identical; the
+     monocular run 2's wall, spans and launches per frame; the XFeat
+     stereo System once (initialized, every pair from 1 OK, two
+     detect_candidates and two keypoint_desc a pair; figures without
+     bars); the new solver calls card against CPU at the CPU tests' bars:
+     the scale-free first ``inertial_init`` and the scale refinement of
+     the monocular run 1, and ``merge_inertial_ba``'s 24-slot solve on
+     TestMergeInertialBA's welded 13-keyframe scene, built on the card
+     (err1 < 0.5 err0); where a float32 LM decision differs, the fields it
+     moves are held to the JAX tests' bars; the phase's time.
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers (``orb_launches``, the
 launches on the ORB RGB-D path, on ``pose_lm``, ``local_ba`` and the two
 ORB kernels, whose ``launches`` are the ORB stereo path's;
 ``stereo_launches`` on the XFeat stereo path's kernels;
-``imu_rgbd_launches`` on the ORB IMU_RGBD path's), and as its last
-line
+``imu_rgbd_launches`` on the ORB IMU_RGBD path's; ``imu_mono_launches``
+on the ORB IMU_MONOCULAR path's, ``imu_stereo_launches`` on the ORB
+IMU_STEREO path's (its run 2) and ``imu_stereo_xfeat_launches`` on the
+XFeat IMU_STEREO path's, each from its own run with the counts reset just
+before it), the script's time, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is missing.
 """
@@ -3300,19 +3322,23 @@ VI_ORB_ALLOWED = ("pose_lm", "local_ba")
 
 class _Recorder:
     """Stands in for a captured solver and keeps a copy of the inputs of
-    its first and its latest call (while ``store`` is a list)."""
+    its first and its latest call (while ``store`` is a list), and of the
+    first call of each static signature (``by_static``)."""
 
     def __init__(self, graph):
-        self.graph, self.store = graph, []
+        self.graph, self.store, self.by_static = graph, [], {}
 
     def __call__(self, tensors, **static):
         if self.store is not None:
-            self.store[1:] = [(tuple(a.clone() for a in tensors),
-                               dict(static))]
+            call = (tuple(a.clone() for a in tensors), dict(static))
+            self.store[1:] = [call]
+            self.by_static.setdefault(tuple(sorted(static.items())), call)
         return self.graph(tensors, **static)
 
 
+@functools.lru_cache(maxsize=1)
 def vi_sequence():
+    """The VI sequence, rendered once for every inertial phase."""
     from xfeatslam_tpu_torch.utils import synthetic
 
     return synthetic.make_vi_sequence(
@@ -3335,15 +3361,20 @@ def vi_settings(Km):
                     viba2_time=3.5)
 
 
-def _vi_run(seq, backend, graphs_from=None, record=False):
-    """One ``System(Sensor.IMU_RGBD)`` run over the VI sequence, each frame
-    with its IMU samples: states, poses, host wall per frame. The captured
-    solvers (and the BA and, for ORB, the extractor graphs) of
+def _vi_run(seq, backend, graphs_from=None, record=False,
+            sensor="IMU_RGBD", rights=None):
+    """One inertial System run (``sensor``: IMU_RGBD, IMU_MONOCULAR, or
+    IMU_STEREO with the right views ``rights``) over the VI sequence, each
+    frame with its IMU samples: states, poses, host wall per frame. The
+    captured solvers (and the BA and, for ORB, the extractor graphs) of
     ``graphs_from`` are replayed; ``record`` keeps the inputs of each
     solver's first calls."""
     from xfeatslam_tpu_torch.slam.system import Sensor, System
 
-    system = System(vi_settings(seq["K"]), Sensor.IMU_RGBD, backend=backend,
+    settings = vi_settings(seq["K"])
+    if sensor == "IMU_STEREO":
+        settings.bf = VI_BASELINE * float(seq["K"][0, 0])
+    system = System(settings, Sensor[sensor], backend=backend,
                     enable_loop_closing=False)
     if graphs_from is not None:
         if backend == "orb" and graphs_from.backend == "orb":
@@ -3357,19 +3388,30 @@ def _vi_run(seq, backend, graphs_from=None, record=False):
             obj = getattr(system, part)
             setattr(obj, attr, _Recorder(getattr(obj, attr)))
     out = {"system": system, "states": [], "poses": [], "walls": []}
-    for i in range(VI_FRAMES):
+    for i in range(len(seq["timestamps"])):
         tw = time.perf_counter()
-        state, pose = system.track_rgbd(seq["images"][i], seq["depths"][i],
-                                        seq["timestamps"][i],
-                                        imu=seq["imu"][i])
+        if sensor == "IMU_RGBD":
+            state, pose = system.track_rgbd(
+                seq["images"][i], seq["depths"][i], seq["timestamps"][i],
+                imu=seq["imu"][i])
+        elif sensor == "IMU_STEREO":
+            state, pose = system.track_stereo(
+                seq["images"][i], rights[i], seq["timestamps"][i],
+                imu=seq["imu"][i])
+        else:
+            state, pose = system.track_monocular(
+                seq["images"][i], seq["timestamps"][i], imu=seq["imu"][i])
         out["walls"].append(time.perf_counter() - tw)
         out["states"].append(state.name)
-        out["poses"].append((pose[0].copy(), pose[1].copy()))
+        out["poses"].append(None if pose is None
+                            else (pose[0].copy(), pose[1].copy()))
     if record:
         out["inputs"] = {}
+        out["by_static"] = {}
         for name, (part, attr) in VI_GRAPHS.items():
             rec = getattr(getattr(system, part), attr)
             out["inputs"][name] = rec.store
+            out["by_static"][name] = rec.by_static
             rec.store = None
     return out
 
@@ -3435,8 +3477,10 @@ def check_vi_bars(label, states, f):
 def _vi_same(a, b):
     """Every pose and the map (keyframe poses, velocities, biases, map
     points) bit for bit."""
-    same = all(np.array_equal(p[0], q[0]) and np.array_equal(p[1], q[1])
-               for p, q in zip(a["poses"], b["poses"]))
+    same = all((p is None and q is None) or (
+        p is not None and q is not None and np.array_equal(p[0], q[0])
+        and np.array_equal(p[1], q[1])) for p, q in zip(a["poses"],
+                                                         b["poses"]))
     ma, mb = a["system"].map, b["system"].map
     same &= sorted(ma.keyframes) == sorted(mb.keyframes)
     for k in ma.keyframes if same else ():
@@ -3499,10 +3543,12 @@ def lm_decisions(name, tensors, static):
     return [tuple(float(v) for v in t.cpu()) for t in store]
 
 
-def _solver_gap(name, a, b, bias_bars=None):
+def _solver_gap(name, a, b, bias_bars=None, free_scale=False):
     """The largest gap between two results of a solver, field by field,
-    with the CPU tests' bars (or ``bias_bars`` on the bias fields):
-    (worst ratio gap/bar, report)."""
+    with the CPU tests' bars (or ``bias_bars`` on the bias fields, and for
+    a scale-free ``inertial_init`` TestInertialInit's bars on the scale,
+    the gravity direction and the velocities): (worst ratio gap/bar,
+    report)."""
     a, b = tuple(a), tuple(b)
     if name == "preintegrate":
         bars = [1e-5] * len(a)
@@ -3516,6 +3562,11 @@ def _solver_gap(name, a, b, bias_bars=None):
     if bias_bars is not None:
         for i, bar in zip(VI_BIAS_FIELDS[name], bias_bars):
             bars[i] = bar
+        if free_scale and name == "inertial_init":
+            # scale within 2%, gravity cosine above 0.999, velocities
+            # within 0.05 m/s
+            bars[0], bars[1], bars[4] = (0.02 * float(b[0].abs()), 0.0447,
+                                         0.05)
     worst, rep = 0.0, []
     for i, (x, y, bar) in enumerate(zip(a, b, bars)):
         if x.dtype == torch.bool:
@@ -3606,7 +3657,9 @@ def inertial_solver_checks(inputs, graphs):
                 flip = next(((i, c, h) for i, (c, h) in enumerate(zip(dc, dh))
                              if c[0] != h[0]), None)
                 if flip is not None:
-                    worst, gaps = _solver_gap(name, got, ref, (2e-3, 4e-2))
+                    worst, gaps = _solver_gap(
+                        name, got, ref, (2e-3, 4e-2),
+                        free_scale=not static.get("fix_scale", True))
             n_captured = len(graph.capture_seconds)
             rep = replay()
             same = all(torch.equal(x, y) for x, y in zip(tuple(got),
@@ -3640,7 +3693,10 @@ def inertial_solver_checks(inputs, graphs):
                 print(f"inertial solver {key}: the LM's accept-or-reject "
                       f"decision differs at iteration {flip[0]}: card (kept, "
                       f"cost, step's cost) {flip[1]}, CPU {flip[2]}; biases "
-                      "held to TestImuRgbd's bars")
+                      "held to TestImuRgbd's bars" + (
+                          ", scale, gravity and velocities to "
+                          "TestInertialInit's" if name == "inertial_init"
+                          and not static.get("fix_scale", True) else ""))
             if worst > 1.0:
                 failed.append(f"{key} ({gaps})")
     check(not failed, "inertial solvers: card and CPU disagree beyond the "
@@ -3719,17 +3775,52 @@ def pose_graph_4dof_check(dev):
             "gap_vs_cpu": gap}
 
 
+def inertial_atlas_check(system):
+    """The inertial atlas round trip: the run's atlas saved on the card's
+    host and loaded back, every keyframe's velocity, biases, chain link
+    and preintegration and the map's IMU flags and biases equal."""
+    from xfeatslam_tpu_torch.slam import serialization
+
+    m1 = system.map
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "atlas_imu.zip")
+        system.save_atlas(path)
+        m2 = serialization.load_atlas(path).active
+    same = (m2.imu_initialized, m2.imu_ba1, m2.imu_ba2) == (
+        m1.imu_initialized, m1.imu_ba1, m1.imu_ba2)
+    same &= (np.array_equal(m1.imu_bg, m2.imu_bg)
+             and np.array_equal(m1.imu_ba, m2.imu_ba))
+    same &= sorted(m1.keyframes) == sorted(m2.keyframes)
+    n_pre = 0
+    for k in (m1.keyframes if same else ()):
+        a, b = m1.keyframes[k], m2.keyframes[k]
+        same &= a.prev_kf == b.prev_kf
+        same &= (a.vel is None) == (b.vel is None)
+        if a.vel is not None:
+            same &= np.array_equal(a.vel, b.vel)
+        same &= np.array_equal(a.bg, b.bg) and np.array_equal(a.ba, b.ba)
+        same &= (a.pre_kf is None) == (b.pre_kf is None)
+        if a.pre_kf is not None and b.pre_kf is not None:
+            n_pre += 1
+            same &= all(np.array_equal(np.asarray(x, np.float32), y)
+                        for x, y in zip(a.pre_kf, b.pre_kf))
+    print(f"inertial atlas round trip: {len(m1.keyframes)} keyframes, "
+          f"{n_pre} preintegrations; IMU state equal {same}")
+    check(same and n_pre == len(m1.keyframes) - 1,
+          "inertial atlas: the loaded map's IMU state differs")
+
+
 def inertial_phase(ck):
     """``System(Sensor.IMU_RGBD)``: the ORB System on TestImuRgbd's run
     twice (run 2 replaying run 1's graphs), each held to TestImuRgbd's bars,
     run 2 bit-identical to run 1, its wall, spans and launches per frame;
-    the XFeat System on the same run twice (IMU initialized, every frame
-    from 1 OK, detect_candidates and keypoint_desc once per frame, run 2
-    bit-identical; its figures printed without bars); each inertial solver
-    on the card against the same function on CPU tensors with run 1's
-    inputs, eager, captured and replayed; the 4-DoF essential graph card
-    against CPU. Returns the ORB run 2's launch counts and the solver
-    rows."""
+    the ORB run's atlas saved and loaded with its IMU state; the XFeat
+    System on the same run once (IMU initialized, every frame from 1 OK,
+    detect_candidates and keypoint_desc once per frame; its figures printed
+    without bars); each inertial solver on the card against the same
+    function on CPU tensors with run 1's inputs, eager, captured and
+    replayed; the 4-DoF essential graph card against CPU. Returns the ORB
+    run 2's launch counts, the solver rows and the ORB run 2's System."""
     seq = vi_sequence()
     dev = torch.device("cuda")
     runs, calls1 = [], {}
@@ -3757,6 +3848,7 @@ def inertial_phase(ck):
     print(f"inertial orb: run 2 against run 1: poses and map bit-identical "
           f"{same}")
     check(same, "inertial orb: run 2 differs from run 1")
+    inertial_atlas_check(b["system"])
     per_frame = {k: round(v / VI_FRAMES, 4) for k, v in b["counts"].items()
                  if v}
     calls = {name: getattr(getattr(b["system"], part), attr).calls
@@ -3766,44 +3858,315 @@ def inertial_phase(ck):
           + f"; kernel launches per frame {json.dumps(per_frame)}; solver "
           f"calls in run 2 {json.dumps(calls)}")
 
-    xruns = []
-    for r in range(2):
-        ck.reset_launch_counts()
-        t0 = time.perf_counter()
-        run = _vi_run(seq, "xfeat", graphs_from=xruns[0]["system"] if xruns
-                      else a["system"])
-        wall = time.perf_counter() - t0
-        counts = path_counts(
-            ck, f"System(IMU_RGBD, backend='xfeat'), {VI_FRAMES} frames, "
-            f"run {r + 1}", {"detect_candidates": VI_FRAMES,
-                             "keypoint_desc": VI_FRAMES},
-            allowed=VI_ORB_ALLOWED)
-        f = vi_figures(seq, run["system"])
-        print(f"inertial xfeat run {r + 1} ({wall:.1f} s): states "
-              f"{run['states'].count('OK')} of {VI_FRAMES} OK; figures "
-              "(no bars) " + json.dumps(
-                  {k: (round(v, 6) if isinstance(v, float) else v)
-                   for k, v in f.items()}) + f"; launches {counts}")
-        check(f["imu_initialized"], f"inertial xfeat run {r + 1}: the IMU "
-              "was not initialized")
-        check(all(s == "OK" for s in run["states"][1:]),
-              f"inertial xfeat run {r + 1}: a frame from 1 was not OK")
-        xruns.append(run)
-    same = _vi_same(*xruns)
-    print(f"inertial xfeat: run 2 against run 1 bit-identical {same}; "
-          "timings (run 2): " + json.dumps(_vi_report(xruns[1])))
-    check(same, "inertial xfeat: run 2 differs from run 1")
+    # the XFeat System once (since the monocular and stereo inertial phase
+    # joined the script: the script's time limit)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = _vi_run(seq, "xfeat", graphs_from=a["system"])
+    wall = time.perf_counter() - t0
+    counts = path_counts(
+        ck, f"System(IMU_RGBD, backend='xfeat'), {VI_FRAMES} frames",
+        {"detect_candidates": VI_FRAMES, "keypoint_desc": VI_FRAMES},
+        allowed=VI_ORB_ALLOWED)
+    f = vi_figures(seq, run["system"])
+    print(f"inertial xfeat ({wall:.1f} s): states "
+          f"{run['states'].count('OK')} of {VI_FRAMES} OK; figures "
+          "(no bars) " + json.dumps(
+              {k: (round(v, 6) if isinstance(v, float) else v)
+               for k, v in f.items()}) + f"; launches {counts}; timings "
+          + json.dumps(_vi_report(run)))
+    check(f["imu_initialized"], "inertial xfeat: the IMU was not initialized")
+    check(all(s == "OK" for s in run["states"][1:]),
+          "inertial xfeat: a frame from 1 was not OK")
 
     rows = inertial_solver_checks(a["inputs"], {
         name: getattr(getattr(b["system"], part), attr)
         for name, (part, attr) in VI_GRAPHS.items()})
     rows["pose_graph_4dof"] = pose_graph_4dof_check(dev)
     print("inertial solvers: " + json.dumps(rows))
-    return b["counts"], rows
+    return b["counts"], rows, b["system"]
 
+
+
+# the monocular and stereo inertial phase: tests/test_inertial_slam.py's
+# TestImuMonocular run (VI_FRAMES frames) and TestImuStereo run
+# (VI_STEREO_FRAMES pairs, the right view VI_BASELINE along camera +x,
+# bf = VI_BASELINE * fx), each at its size, with its bars: scale error,
+# ATE max (m), gravity error
+VI_STEREO_FRAMES = 50
+VI_BASELINE = 0.08
+VI_SENSOR_BARS = {"IMU_MONOCULAR": (0.08, 0.08, 0.5),
+                  "IMU_STEREO": (0.03, 0.06, 0.4)}
+
+
+def vi_prefix(seq, n):
+    """The first n frames of a VI sequence, which is make_vi_sequence's
+    n-frame sequence (the same trajectory, IMU samples and images)."""
+    m = len(seq["timestamps"])
+    return {k: v[:n] if isinstance(v, (list, np.ndarray)) and len(v) == m
+            else v for k, v in seq.items()}
+
+
+def vi_stereo_rights(seq):
+    """TestImuStereo's right views: the room rendered VI_BASELINE along
+    each left camera's +x."""
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    scene = synthetic.RoomScene(seed=0)
+    return [scene.render(seq["K"], R, (t - np.array(
+        [VI_BASELINE, 0, 0], np.float32)).astype(np.float32), (H, W))[0]
+        for R, t in seq["poses"]]
+
+
+def check_vi_sensor_bars(label, sensor, f):
+    """TestImuMonocular's or TestImuStereo's bars."""
+    scale, ate, grav = VI_SENSOR_BARS[sensor]
+    check(f["imu_initialized"], f"{label}: the IMU was not initialized")
+    check(f["keyframes"] >= 6, f"{label}: {f['keyframes']} keyframes")
+    check(f["scale_err"] < scale, f"{label}: scale off by {f['scale_err']}")
+    check(f["ate_max_m"] < ate, f"{label}: ATE max {f['ate_max_m']}")
+    check(f["gravity_err"] < grav, f"{label}: gravity off by "
+          f"{f['gravity_err']}")
+
+
+def _vi_sensor_runs(ck, seq, sensor, backend, expect, n_runs, rights=None,
+                    record=False, graphs_from=None, exact_first=False):
+    """``n_runs`` runs of one inertial System over ``seq``, each counted
+    (``expect``, exact from run 2 on, or from run 1 with ``exact_first``:
+    run 1 also counts the launches of its captures' warm-ups; pose_lm and
+    local_ba allowed), run 2 replaying run 1's graphs; the figures of each
+    run printed."""
+    runs = []
+    n = len(seq["timestamps"])
+    for r in range(n_runs):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        run = _vi_run(seq, backend, graphs_from=runs[0]["system"] if runs
+                      else graphs_from, record=record and r == 0,
+                      sensor=sensor, rights=rights)
+        run["wall"] = time.perf_counter() - t0
+        run["counts"] = path_counts(
+            ck, f"System({sensor}, backend='{backend}'), {n} frames, run "
+            f"{r + 1}", expect if r or exact_first
+            else dict.fromkeys(expect), allowed=VI_ORB_ALLOWED)
+        f = run["figures"] = vi_figures(seq, run["system"])
+        print(f"{sensor} {backend} run {r + 1} ({run['wall']:.1f} s): states "
+              f"{run['states'].count('OK')} of {n} OK; " + json.dumps(
+                  {k: (round(v, 6) if isinstance(v, float) else v)
+                   for k, v in f.items()}))
+        runs.append(run)
+    return runs
+
+
+def _weld_scene(dev):
+    """tests/test_inertial.py::TestMergeInertialBA::test_weld_refinement's
+    welded 13-keyframe scene in the port's classes: keyframes 0-5 the old
+    map, 6-12 the moved one (its IMU chain cut at 6), the moved free states
+    7-12 off by 3 degrees of yaw and 8 cm, landmarks that consecutive
+    keyframes share, the preintegrations the port's own. Returns the map,
+    its monocular inertial LocalMapping on ``dev`` and the truth."""
+    from xfeatslam_tpu_torch.ops import imu
+    from xfeatslam_tpu_torch.ops.camera import Pinhole
+    from xfeatslam_tpu_torch.optim.inertial import np_body_to_cam
+    from xfeatslam_tpu_torch.slam.local_mapping import LocalMapping
+    from xfeatslam_tpu_torch.slam.map import KeyFrame, SlamMap
+    from xfeatslam_tpu_torch.utils.synthetic import make_imu_trajectory
+
+    n_kf, split, n_pts, slots = 13, 6, 60, 128
+    I3, Z3 = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    traj = make_imu_trajectory(n_kf=n_kf, g_dir=np.array([0, 0, -1.0]))
+    pres = [imu.to_numpy(imu.preintegrate(
+        torch.from_numpy(np.asarray(g["acc"])),
+        torch.from_numpy(np.asarray(g["gyro"])),
+        torch.from_numpy(np.asarray(g["dts"])),
+        torch.ones(len(g["acc"]), dtype=torch.bool), torch.zeros(3),
+        torch.zeros(3), noise_gyro=1e-3, noise_acc=1e-2))
+        for g in traj["imu"]]
+    rng = np.random.default_rng(0)
+    banks = []
+    for k in range(n_kf - 1):
+        R_cw, t_cw = np_body_to_cam(traj["R_wb"][k], traj["p_wb"][k], I3, Z3)
+        dirs = rng.standard_normal((n_pts, 3))
+        dirs[:, 2] = np.abs(dirs[:, 2]) + 1.5
+        dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+        Xc = dirs * rng.uniform(2.0, 6.0, n_pts)[:, None]
+        rng.standard_normal((n_pts, 2))
+        banks.append((Xc @ R_cw - R_cw.T @ t_cw).astype(np.float32))
+    yaw = np.deg2rad(3.0)
+    R_off = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                      [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]], np.float32)
+    t_off = np.array([0.08, -0.05, 0.03], np.float32)
+    c0 = traj["p_wb"][7].astype(np.float32)
+    m = SlamMap(desc_dim=64)
+    m.imu_initialized = True
+    mp_of = {}
+    for k in range(n_kf):
+        R_cw, t_cw = np_body_to_cam(traj["R_wb"][k], traj["p_wb"][k], I3, Z3)
+        uv_all, key_all = [], []
+        for b in ([k - 1] if k else []) + ([k] if k < n_kf - 1 else []):
+            Xc = banks[b] @ R_cw.T + t_cw
+            z = np.maximum(Xc[:, 2], 1e-6)
+            uv = np.stack([517.3 * Xc[:, 0] / z + 318.6,
+                           516.5 * Xc[:, 1] / z + 255.3], -1)
+            for j in np.nonzero(Xc[:, 2] > 0.2)[0]:
+                if len(uv_all) < slots:
+                    uv_all.append(uv[j])
+                    key_all.append((b, int(j)))
+        kpts = np.zeros((slots, 2), np.float32)
+        kpts[:len(uv_all)] = np.asarray(uv_all, np.float32)
+        valid = np.arange(slots) < len(uv_all)
+        R_wb, p_wb = traj["R_wb"][k], traj["p_wb"][k]
+        v_w = traj["v_w"][k]
+        if k >= 7:
+            R_wb, p_wb = R_off @ R_wb, R_off @ (p_wb - c0) + c0 + t_off
+            v_w = R_off @ v_w
+        R_c, t_c = np_body_to_cam(R_wb.astype(np.float32),
+                                  p_wb.astype(np.float32), I3, Z3)
+        kf = KeyFrame(kid=k, frame_id=k, timestamp=float(traj["t_kf"][k]),
+                      kpts_un=kpts, desc=np.zeros((slots, 64), np.float32),
+                      valid=valid, ur=np.full(slots, -1.0, np.float32),
+                      depth=np.zeros(slots, np.float32), R=R_c, t=t_c)
+        kf.prev_kf = -1 if k in (0, split) else k - 1
+        if k not in (0, split):
+            kf.pre_kf = pres[k - 1]
+        kf.vel = np.asarray(v_w, np.float32)
+        m.keyframes[k] = kf
+        m.covis.setdefault(k, {})
+        if m.kf_origin is None:
+            m.kf_origin = k
+        for slot, key in enumerate(key_all):
+            if key not in mp_of:
+                mp_of[key] = m.create_point(banks[key[0]][key[1]],
+                                            np.zeros(64, np.float32), k)
+            m.add_observation(mp_of[key], k, slot, update_links=False)
+        m.update_connections(k)
+    calib = imu.ImuCalib(noise_gyro=1e-3, noise_acc=1e-2, walk_gyro=1e-6,
+                         walk_acc=1e-5, R_bc=I3, t_bc=Z3)
+    lm = LocalMapping(m, Pinhole.from_list([517.3, 516.5, 318.6, 255.3]),
+                      0.0, dev, imu_calib=calib, mono=True)
+    return m, lm, traj
+
+
+def merge_inertial_ba_check(dev):
+    """``LocalMapping.merge_inertial_ba`` on the card on the welded scene:
+    the moved side pulled back onto the welding-region landmarks (the JAX
+    test's bar, err1 < 0.5 err0); returns the 24-slot solve's recorded
+    call and its graph."""
+    m, lm, traj = _weld_scene(dev)
+
+    def err():
+        return max(float(np.linalg.norm(m.keyframes[k].center()
+                                         - traj["p_wb"][k]))
+                   for k in range(7, 13))
+
+    rec = lm._viba_graph = _Recorder(lm._viba_graph)
+    err0 = err()
+    t0 = time.perf_counter()
+    lm.merge_inertial_ba(12, 5)
+    wall = (time.perf_counter() - t0) * 1e3
+    err1 = err()
+    print(f"merge_inertial_ba on the welded 13-keyframe scene: moved-side "
+          f"error {err0 * 1e3:.3f} -> {err1 * 1e3:.3f} mm (bar: below half), "
+          f"{len(rec.store)} solve, shapes "
+          f"{[tuple(t.shape) for t in rec.store[0][0][:2]]}, host wall "
+          f"{wall:.1f} ms (capture included)")
+    check(err0 > 0.05 and err1 < 0.5 * err0,
+          "merge_inertial_ba: the weld was not refined")
+    check(len(rec.store) == 1 and rec.store[0][0][0].shape[0] == 24,
+          "merge_inertial_ba: not one 24-slot solve")
+    return rec.store, rec.graph
+
+
+def inertial_mono_stereo_phase(ck, graphs_from=None):
+    """``System(Sensor.IMU_MONOCULAR)`` and ``System(Sensor.IMU_STEREO)``:
+    the ORB monocular System on TestImuMonocular's run twice and the ORB
+    stereo System on TestImuStereo's twice (run 2 replaying run 1's graphs,
+    bit-identical), each run held to its test's bars; the monocular run 2's
+    wall, spans and launches per frame; the XFeat stereo System once (IMU
+    initialized, every pair from 1 OK, two detect_candidates and two
+    keypoint_desc a pair); the new solver calls on the card against the
+    CPU: the scale-free first initialization and the scale refinement of
+    the monocular run 1, and merge_inertial_ba's 24-slot solve on the
+    welded scene. Each System's run 1 starts from the graphs captured
+    before it (``graphs_from``, the IMU_RGBD phase's ORB System, then the
+    monocular run's), so only new shapes and schedules are captured.
+    Returns each path's launch counts and the solver rows."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    seq = vi_sequence()
+    n = len(seq["timestamps"])
+    mono = _vi_sensor_runs(ck, seq, "IMU_MONOCULAR", "orb",
+                           {"orb_fast": n, "orb_describe": n}, 2,
+                           record=True, graphs_from=graphs_from)
+    for r, run in enumerate(mono):
+        check_vi_sensor_bars(f"IMU_MONOCULAR orb run {r + 1}",
+                             "IMU_MONOCULAR", run["figures"])
+    same = _vi_same(*mono)
+    print(f"IMU_MONOCULAR orb: run 2 against run 1: poses and map "
+          f"bit-identical {same}")
+    check(same, "IMU_MONOCULAR orb: run 2 differs from run 1")
+    b = mono[1]
+    per_frame = {k: round(v / n, 4) for k, v in b["counts"].items() if v}
+    print("IMU_MONOCULAR orb timings (host wall, run 2, "
+          f"{n} frames at {W}x{H}): " + json.dumps(_vi_report(b))
+          + f"; kernel launches per frame {json.dumps(per_frame)}; "
+          "two-view failures before the map started (each keeps the "
+          "reference, ROADMAP C.18) "
+          f"{b['system'].tracking.stats.get('two_view_fail', 0)}; "
+          f"inertial initializations (scale, gravity tilt deg) "
+          + json.dumps([(round(rec[1], 6), round(float(np.degrees(np.arccos(
+              np.clip(rec[2][2, 2], -1, 1)))), 4))
+              for rec in b["system"].local_mapping.init_debug]))
+
+    seq_s = vi_prefix(seq, VI_STEREO_FRAMES)
+    rights = vi_stereo_rights(seq_s)
+    ns = VI_STEREO_FRAMES
+    stereo = _vi_sensor_runs(ck, seq_s, "IMU_STEREO", "orb",
+                             {"orb_fast": 2 * ns, "orb_describe": 2 * ns}, 2,
+                             rights=rights, graphs_from=mono[1]["system"])
+    for r, run in enumerate(stereo):
+        check_vi_sensor_bars(f"IMU_STEREO orb run {r + 1}", "IMU_STEREO",
+                             run["figures"])
+    same = _vi_same(*stereo)
+    print(f"IMU_STEREO orb: run 2 against run 1: poses and map bit-identical "
+          f"{same}; timings (run 2): " + json.dumps(_vi_report(stereo[1])))
+    check(same, "IMU_STEREO orb: run 2 differs from run 1")
+    xs, = _vi_sensor_runs(ck, seq_s, "IMU_STEREO", "xfeat",
+                          {"detect_candidates": 2 * ns,
+                           "keypoint_desc": 2 * ns}, 1, rights=rights,
+                          graphs_from=stereo[0]["system"], exact_first=True)
+    print("IMU_STEREO xfeat: figures above without bars; timings "
+          + json.dumps(_vi_report(xs)))
+    check(xs["figures"]["imu_initialized"],
+          "IMU_STEREO xfeat: the IMU was not initialized")
+    check(all(st == "OK" for st in xs["states"][1:]),
+          "IMU_STEREO xfeat: a pair from 1 was not OK")
+
+    # the new solver calls, card against CPU
+    by_static = mono[0]["by_static"]["inertial_init"]
+    free = [c for c in by_static.values()
+            if c[1]["prior_a"] == 1e6 and not c[1]["fix_scale"]]
+    refine = [c for c in by_static.values() if c[1]["prior_g"] == 1e8]
+    check(free, "IMU_MONOCULAR: no scale-free first initialization recorded")
+    check(refine, "IMU_MONOCULAR: no scale refinement recorded")
+    graph = getattr(b["system"].local_mapping._init_graph, "graph",
+                    b["system"].local_mapping._init_graph)
+    rows = inertial_solver_checks({"inertial_init": [free[0], refine[0]]},
+                                  {"inertial_init": graph})
+    rows["inertial_init_scale_free"] = rows.pop("inertial_init")
+    rows["scale_refinement"] = rows.pop("inertial_init[1]")
+    weld_calls, weld_graph = merge_inertial_ba_check(dev)
+    rows["merge_inertial_ba_24_slots"] = inertial_solver_checks(
+        {"local_inertial_ba": weld_calls},
+        {"local_inertial_ba": weld_graph})["local_inertial_ba"]
+    print("inertial mono/stereo solvers: " + json.dumps(rows))
+    print(f"inertial mono/stereo phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"imu_mono": b["counts"], "imu_stereo": stereo[1]["counts"],
+            "imu_stereo_xfeat": xs["counts"]}, rows
 
 
 def run(batch: int, root: str):
+    t_run = time.perf_counter()
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -4094,7 +4457,9 @@ def run(batch: int, root: str):
     rectification_phase(root)
 
     # ---- visual-inertial RGB-D: ORB and XFeat Systems, the solvers ----
-    vi_launches, _ = inertial_phase(ck)
+    vi_launches, _, vi_system = inertial_phase(ck)
+    # ---- monocular and stereo inertial: the Systems, the new solver calls --
+    vi2_launches, _ = inertial_mono_stereo_phase(ck, vi_system)
 
     # the ORB kernels: launches on the ORB stereo path (its second run)
     for name in ("orb_fast", "orb_describe"):
@@ -4119,6 +4484,14 @@ def run(batch: int, root: str):
             row["stereo_launches"] = stereo_launches[row["name"]]
         if vi_launches.get(row["name"]):
             row["imu_rgbd_launches"] = vi_launches[row["name"]]
+        for col, counts in (("imu_mono_launches", vi2_launches["imu_mono"]),
+                            ("imu_stereo_launches",
+                             vi2_launches["imu_stereo"]),
+                            ("imu_stereo_xfeat_launches",
+                             vi2_launches["imu_stereo_xfeat"])):
+            if counts.get(row["name"]):
+                row[col] = counts[row["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all")
     print(json.dumps({"kernels": rows_out}))
 
 

@@ -258,13 +258,100 @@ def test_settings_from_yaml_required_parameters(tmp_path):
             mod.Settings.from_yaml(str(path), "RGBD")
 
 
-@pytest.mark.parametrize("name,sensor,item", [
-    ("euroc_mono", "IMU_MONOCULAR", "15b"),
-    ("euroc_mono", "IMU_STEREO", "15b"),
+EUROC_STEREO_INERTIAL = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: 458.654
+Camera1.fy: 457.296
+Camera1.cx: 367.215
+Camera1.cy: 248.375
+Camera1.k1: -0.28340811
+Camera1.k2: 0.07395907
+Camera1.p1: 0.00019359
+Camera1.p2: 1.76187114e-05
+Camera2.fx: 457.587
+Camera2.fy: 456.134
+Camera2.cx: 379.999
+Camera2.cy: 255.238
+Camera2.k1: -0.28368365
+Camera2.k2: 0.07451284
+Camera2.p1: -0.00010473
+Camera2.p2: -3.55590700e-05
+Stereo.ThDepth: 60.0
+Stereo.T_c1_c2: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [0.999997256477797, -0.002317135723275, -0.000343393120620,
+         0.110074137800478, 0.002312067192432, 0.999898048507103,
+         -0.014090668452683, -0.000156612054392, 0.000376008102320,
+         0.014089835846691, 0.999900662638081, 0.000889382785432,
+         0.0, 0.0, 0.0, 1.0]
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20
+Camera.RGB: 1
+IMU.T_b_c1: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975,
+         0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768,
+        -0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949,
+         0.0, 0.0, 0.0, 1.0]
+IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+IMU.Frequency: 200.0
+IMU.InsertKFsWhenLost: 0
+ORBextractor.nFeatures: 1200
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+@pytest.mark.parametrize("name,sensor", [
+    # the monocular-inertial config, strict: key for key as JAX
+    ("euroc_mono_inertial", "IMU_MONOCULAR"),
+    # EuRoC's unrectified stereo rig with its IMU: rectified by both
+    # packages, the IMU extrinsic rotated with camera 1
+    ("euroc_stereo_inertial", "IMU_STEREO"),
 ])
-def test_settings_from_yaml_unported_sections_raise(name, sensor, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tset.Settings.from_yaml(_config(name), sensor)
+def test_settings_from_yaml_inertial_sections(name, sensor, tmp_path):
+    """The monocular and stereo inertial sensors read as the JAX package
+    reads them: cameras, stereo rig, IMU calibration and schedule."""
+    if name == "euroc_stereo_inertial":
+        pytest.importorskip("cv2")  # the JAX package rectifies with cv2
+        path = tmp_path / f"{name}.yaml"
+        path.write_text(EUROC_STEREO_INERTIAL)
+        path = str(path)
+    else:
+        path = _config(name)
+    ts = tset.Settings.from_yaml(path, sensor)
+    js = jset.Settings.from_yaml(path, sensor)
+    np.testing.assert_allclose(ts.cam.params_list(),
+                               [float(v) for v in js.cam], rtol=1e-6)
+    for f in ("fps", "bf", "th_depth", "imu_frequency", "imu_init_time",
+              "viba1_time", "viba2_time"):
+        np.testing.assert_allclose(getattr(ts, f), getattr(js, f),
+                                   rtol=1e-6, err_msg=f)
+    for f in ("n_features", "insert_kfs_when_lost", "camera_type"):
+        assert getattr(ts, f) == getattr(js, f), f
+    for f in ("noise_gyro", "noise_acc", "walk_gyro", "walk_acc"):
+        assert getattr(ts.imu, f) == getattr(js.imu, f), f
+    np.testing.assert_array_equal(ts.imu.t_bc, js.imu.t_bc)
+    np.testing.assert_allclose(ts.imu.R_bc, js.imu.R_bc, atol=1e-6)
+    assert ts.imu.R_bc.dtype == np.float32
+    if sensor == "IMU_STEREO":
+        assert ts.rect_maps is not None and js.rect_maps is not None
+        # the extrinsic follows the rectifying rotation
+        assert not np.allclose(ts.imu.R_bc, tset.Settings.from_yaml(
+            path).imu.R_bc, atol=1e-5)
+    else:
+        assert ts.cam2 is js.cam2 is None
 
 
 @pytest.mark.parametrize("name,sensor", [

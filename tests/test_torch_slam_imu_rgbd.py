@@ -11,7 +11,10 @@ and 28 frames with VIBA1 at 1.5-1.8 s never run VIBA1 and 20 frames never
 initialize; with 1000 features every run from 30 to 45 frames (and 30 or
 35 at 240x320) keeps five keyframes, and 50 frames pass. The 60-frame
 640x480 mirror of all five TestImuRgbd tests is ``slow``; it also runs on
-the card in ``chip_smoke.py``'s ``inertial_phase``."""
+the card in ``chip_smoke.py``'s ``inertial_phase``. The same 30-frame run
+also carries TestInertialSerialization's atlas round trip, the
+preintegration records read and written across the two packages, and
+TestSaveDebugData."""
 
 import numpy as np
 import pytest
@@ -190,6 +193,119 @@ def test_imu_rgbd_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         System(imu_settings(K), Sensor.IMU_RGBD, backend="orb",
                enable_loop_closing=False)
+
+
+def test_inertial_atlas_round_trip(small_run, tmp_path):
+    """TestInertialSerialization's checks on the 30-frame run: the atlas
+    carries the map's IMU flags and biases and every keyframe's velocity,
+    biases, chain link and preintegration."""
+    from xfeatslam_tpu_torch.slam import serialization
+
+    _seq, system = small_run
+    assert system.map.imu_initialized
+    path = str(tmp_path / "atlas_imu.zip")
+    system.save_atlas(path)
+    m1, m2 = system.map, serialization.load_atlas(path).active
+    assert m2.imu_initialized == m1.imu_initialized
+    assert m2.imu_ba1 == m1.imu_ba1 and m2.imu_ba2 == m1.imu_ba2
+    np.testing.assert_allclose(m2.imu_bg, m1.imu_bg, atol=1e-7)
+    np.testing.assert_allclose(m2.imu_ba, m1.imu_ba, atol=1e-7)
+    n_pre = 0
+    for kid, kf in m1.keyframes.items():
+        kf2 = m2.keyframes[kid]
+        assert kf2.prev_kf == kf.prev_kf
+        np.testing.assert_array_equal(kf2.bg, kf.bg)
+        np.testing.assert_array_equal(kf2.ba, kf.ba)
+        if kf.vel is not None:
+            np.testing.assert_allclose(kf2.vel, kf.vel, atol=1e-6)
+        assert (kf2.pre_kf is None) == (kf.pre_kf is None)
+        if kf.pre_kf is not None:
+            n_pre += 1
+            np.testing.assert_allclose(np.asarray(kf2.pre_kf.dP),
+                                       np.asarray(kf.pre_kf.dP), atol=1e-6)
+            np.testing.assert_allclose(np.asarray(kf2.pre_kf.cov),
+                                       np.asarray(kf.pre_kf.cov), rtol=1e-5,
+                                       atol=1e-8)
+            for a, b in zip(kf2.pre_kf, kf.pre_kf):
+                np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+    assert n_pre == len(m1.keyframes) - 1
+
+
+def test_preintegration_records_across_packages(small_run, tmp_path):
+    """The run's atlas written by the port is read by the JAX package, which
+    writes it again; the port reads that file back: every preintegration
+    equal, and each flat record equal to the JAX package's own flattening
+    of the same preintegration."""
+    from xfeatslam_tpu.slam import serialization as jser
+    from xfeatslam_tpu_torch.slam import serialization as tser
+
+    _seq, system = small_run
+    path1, path2 = str(tmp_path / "port.zip"), str(tmp_path / "jax.zip")
+    system.save_atlas(path1)
+    jatlas = jser.load_atlas(path1)
+    jser.save_atlas(jatlas, path2)
+    back = tser.load_atlas(path2).active
+    for kid, kf in system.map.keyframes.items():
+        jkf = jatlas.active.keyframes[kid]
+        assert (jkf.prev_kf, back.keyframes[kid].prev_kf) == (kf.prev_kf,) * 2
+        if kf.pre_kf is None:
+            assert jkf.pre_kf is None and back.keyframes[kid].pre_kf is None
+            continue
+        np.testing.assert_array_equal(tser.flatten_pre(kf.pre_kf),
+                                      jser._flatten_pre(kf.pre_kf))
+        for a, b, c in zip(kf.pre_kf, jkf.pre_kf, back.keyframes[kid].pre_kf):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a,
+                                                                    np.float32))
+            np.testing.assert_array_equal(c, np.asarray(b))
+    assert tser.PRE_RECORD_SIZE == 292
+    with pytest.raises(ValueError, match="292"):
+        tser.unflatten_pre(np.zeros(291, np.float32))
+
+
+def test_save_debug_data(small_run, tmp_path):
+    """TestSaveDebugData on the port: nothing before an initialization;
+    the JAX test's record in its files; and the run's own records written
+    byte for byte as the JAX package's ``save_debug_data`` writes them."""
+    import types
+
+    from xfeatslam_tpu.slam import system as jsys
+
+    _seq, system = small_run
+    lm = system.local_mapping
+    saved = (lm.init_sect, lm.init_debug)
+    (tmp_path / "none").mkdir()
+    lm.init_debug = []
+    system.save_debug_data(0, str(tmp_path / "none"))
+    assert not list((tmp_path / "none").iterdir())
+    lm.init_sect = 1
+    lm.init_debug = [(1, 1.03, np.eye(3, dtype=np.float32), 12.5, 10)]
+    try:
+        out = tmp_path / "one"
+        out.mkdir()
+        system.save_debug_data(0, str(out))
+        names = {p.name for p in out.iterdir()}
+        assert names == {"init_FrameTrajectory_1_0.txt", "init_Scale_1.txt",
+                         "init_GDir_1.txt", "init_CompCost_1.txt",
+                         "init_KF_1.txt"}
+        assert (out / "init_Scale_1.txt").read_text() == "1.03\n"
+        gdir = (out / "init_GDir_1.txt").read_text().splitlines()
+        assert len(gdir) == 3 and gdir[0].split(",")[0] == "1.0"
+    finally:
+        lm.init_sect, lm.init_debug = saved
+    assert lm.init_debug
+    for d in ("port", "jax"):
+        (tmp_path / d).mkdir()
+    system.save_debug_data(2, str(tmp_path / "port"))
+    jsys.System.save_debug_data(
+        types.SimpleNamespace(local_mapping=lm,
+                              save_trajectory_euroc=system.save_trajectory_euroc),
+        2, str(tmp_path / "jax"))
+    files = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert files == sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert len(files) == 5
+    for name in files:
+        assert ((tmp_path / "port" / name).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes()), name
 
 
 @pytest.fixture(scope="module")

@@ -183,9 +183,14 @@ def test_use_orb_selects_orb(monkeypatch):
         tsys.System(settings, tsys.Sensor.RGBD, backend="sift", device="cpu")
     settings.imu = ImuCalib(R_bc=np.eye(3, dtype=np.float32),
                             t_bc=np.zeros(3, np.float32))
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        tsys.System(settings, tsys.Sensor.IMU_STEREO, backend="orb",
+    # an ORB IMU_STEREO System: stereo frames carry depth (the RGB-D
+    # tracker and schedule) and the IMU reaches tracking and local mapping
+    s = tsys.System(settings, tsys.Sensor.IMU_STEREO, backend="orb",
                     device="cpu")
+    assert s.backend == "orb" and s.tracking.cfg.binary
+    assert s.tracking.sensor == "rgbd" and not s.local_mapping.mono
+    assert s.tracking.imu_calib is s.local_mapping.imu_calib is settings.imu
+    assert s.loop_closing.fix_scale and s.loop_closing.welding_iba is not None
     # an ORB IMU_RGBD System: the ORB profile, the IMU on both threads, the
     # inertial split tracking path (no two-stage step in inertial mode)
     s = tsys.System(settings, tsys.Sensor.IMU_RGBD, backend="orb",

@@ -31,11 +31,13 @@ def _one_torch_thread():
 
 from xfeatslam_tpu.ops import camera as jc  # noqa: E402
 from xfeatslam_tpu.ops import imu as jimu  # noqa: E402
+from xfeatslam_tpu.slam import serialization as jser  # noqa: E402
 from xfeatslam_tpu.slam import settings as jset  # noqa: E402
 from xfeatslam_tpu.slam import system as jsys  # noqa: E402
 from xfeatslam_tpu.utils import synthetic as jsyn  # noqa: E402
 from xfeatslam_tpu_torch.ops import camera as tc  # noqa: E402
 from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from xfeatslam_tpu_torch.ops import imu as timu  # noqa: E402
 from xfeatslam_tpu_torch.ops.imu import ImuCalib  # noqa: E402
 from xfeatslam_tpu_torch.optim import track_step  # noqa: E402
 from xfeatslam_tpu_torch.slam import map as tmap  # noqa: E402
@@ -155,33 +157,64 @@ def _settings():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    # the monocular sensor is ported; its inertial samples are not
-    (dict(sensor=tsys.Sensor.MONOCULAR, imu_samples=True), "15b"),
-    (dict(sensor=tsys.Sensor.STEREO, imu_samples=True), "15b"),
-    (dict(sensor=tsys.Sensor.IMU_MONOCULAR), "15b"),
-    (dict(sensor=tsys.Sensor.IMU_STEREO), "15b"),
-    # the ORB backend and the stereo sensor are ported; stereo's inertial
-    # samples are not
-    (dict(backend="orb", sensor=tsys.Sensor.STEREO, imu_samples=True),
-     "15b"),
     (dict(viewer_dir="/nonexistent"), "16"),
 ])
 def test_unported_configurations_raise(kwargs, item):
     kw = dict(enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     sensor = kw.pop("sensor", tsys.Sensor.RGBD)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tsys.System(_settings(), sensor, **kw)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sensor="MONOCULAR", imu_samples=True),
+    dict(sensor="STEREO", imu_samples=True),
+    dict(sensor="IMU_MONOCULAR"),
+    dict(sensor="IMU_STEREO"),
+    dict(backend="orb", sensor="STEREO", imu_samples=True),
+], ids=["mono_samples", "stereo_samples", "imu_mono", "imu_stereo",
+        "orb_stereo_samples"])
+def test_inertial_configurations_as_jax(kwargs):
+    """Each sensor and backend builds and takes a first (blank) frame with
+    IMU samples as the JAX package's System does: the tracker kind, the
+    local-mapping schedule (a monocular inertial map waits for 2 s and 10
+    keyframes) and the welding-BA hook with an IMU; a sensor without an
+    IMU queues the samples and never reads them, an inertial one drops the
+    samples up to its first frame and keeps the later ones."""
+    kw = dict(kwargs)
+    sensor = kw.pop("sensor")
     imu_samples = kw.pop("imu_samples", False)
+    backend = kw.pop("backend", "xfeat")
     settings = _settings()
+    jsettings = jset.Settings(cam=jc.Pinhole.from_list(CAMP), **SETTINGS)
     settings.imu = ImuCalib(R_bc=np.eye(3, dtype=np.float32),
                             t_bc=np.zeros(3, np.float32))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        system = tsys.System(settings, sensor, **kw)
-        if imu_samples and sensor == tsys.Sensor.STEREO:
-            system.track_stereo(np.zeros(HW, np.uint8), np.zeros(HW, np.uint8),
-                                0.0, imu=[(np.zeros(3), np.zeros(3), 0.0)])
-        elif imu_samples:
-            system.track_monocular(np.zeros(HW, np.uint8), 0.0,
-                                   imu=[(np.zeros(3), np.zeros(3), 0.0)])
+    jsettings.imu = jimu.ImuCalib(R_bc=np.eye(3, dtype=np.float32),
+                                  t_bc=np.zeros(3, np.float32))
+    samples = [(np.zeros(3), np.zeros(3), 0.0),
+               (np.zeros(3), np.zeros(3), 0.05)]
+    img = np.zeros(HW, np.uint8)
+    out = {}
+    for mod, s, extra in ((tsys, settings, dict(device="cpu")),
+                          (jsys, jsettings, {})):
+        system = mod.System(s, mod.Sensor[sensor], backend=backend, **extra)
+        if "STEREO" in sensor:
+            state, pose = system.track_stereo(img, img, 0.0, imu=samples)
+        else:
+            state, pose = system.track_monocular(img, 0.0, imu=samples)
+        lm = system.local_mapping
+        out[mod] = dict(
+            state=state.name, pose=pose, sensor=system.tracking.sensor,
+            calib=system.tracking.imu_calib is not None,
+            queue=[q[0] for q in system.tracking.imu_queue],
+            schedule=(lm.mono, lm.imu_init_time, lm.imu_min_kfs),
+            hook=system.loop_closing.welding_iba is not None,
+            fix_scale=system.loop_closing.fix_scale)
+    assert out[tsys] == out[jsys]
+    inertial = sensor.startswith("IMU")
+    assert out[tsys]["calib"] == out[tsys]["hook"] == inertial
+    assert out[tsys]["queue"] == ([0.05] if inertial else [0.0, 0.05])
 
 
 def test_imu_rgbd_system_wired_as_jax():
@@ -219,18 +252,24 @@ def test_imu_rgbd_system_wired_as_jax():
 
 def test_unported_paths_raise(runs, tmp_path):
     ts = runs["port_sys"]
-    # the atlas files are ported; a keyframe's inertial preintegration in
-    # them is not
+    # a keyframe's inertial preintegration goes into the atlas files and
+    # comes back equal, in the JAX package's loader too
     m = tmap.SlamMap()
+    rng = np.random.default_rng(1)
+    pre = timu.Preintegrated(*(rng.standard_normal(shape).astype(np.float32)
+                               for shape in tser._PRE_SHAPES))
     m.add_keyframe(tmap.KeyFrame(
         kid=0, frame_id=0, timestamp=0.0,
         kpts_un=np.zeros((4, 2), np.float32),
         desc=np.zeros((4, 64), np.float32), valid=np.ones(4, bool),
         ur=np.full(4, -1.0, np.float32), depth=np.zeros(4, np.float32),
         R=np.eye(3, dtype=np.float32), t=np.zeros(3, np.float32),
-        pre_kf=object()))
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        tser.save_map(m, str(tmp_path / "m.npz"))
+        pre_kf=pre, prev_kf=-1))
+    tser.save_map(m, str(tmp_path / "m.npz"))
+    for loaded in (tser.load_map(str(tmp_path / "m.npz")),
+                   jser.load_map(str(tmp_path / "m.npz"))):
+        for a, b in zip(loaded.keyframes[0].pre_kf, pre):
+            np.testing.assert_array_equal(a, b)
     with pytest.raises(NotImplementedError, match="item 16"):
         ts.export_map_html(str(tmp_path / "map.html"))
     # the readers and the fisheye settings are ported (tracking through a

@@ -8,21 +8,23 @@ keyframe; the local BA's later rounds run one per frame between keyframes
 (``tick``). The host logic is numpy; the batched geometry, matching and BA
 run as the port's torch ops on ``device``.
 
-With an IMU (``imu_calib``, RGB-D inertial) it also runs the IMU
-initialization schedule (init, VIBA1, VIBA2: ``optim/inertial``'s
-``inertial_init`` on the keyframe chain, the map rotated and rescaled, then
-a full-chain inertial BA), the joint visual-inertial window BA
-(``optim/viba``) in place of the visual local BA once the map is
-initialized, and the inertial culling rules (the chain kept dense, the
-culled keyframe's preintegration merged into its successor's). On the card
-both solvers replay CUDA graphs (``inertial.InertialGraph``). The
-monocular-inertial schedule (scale refinement) and the inertial BA after a
-map merge wait for ROADMAP item 15b.
+With an IMU (``imu_calib``) it also runs the IMU initialization schedule
+(init, VIBA1, VIBA2: ``optim/inertial``'s ``inertial_init`` on the keyframe
+chain, the map rotated and rescaled, then a full-chain inertial BA), the
+joint visual-inertial window BA (``optim/viba``) in place of the visual
+local BA once the map is initialized, and the inertial culling rules (the
+chain kept dense, the culled keyframe's preintegration merged into its
+successor's). A monocular inertial map (``mono``) waits for 10 keyframes
+and 2 s, initializes with a free scale, and refines scale and gravity on
+pinned biases while its chain spans under 50 s. After a weld into an
+inertial map, ``merge_inertial_ba`` refines the two temporal windows
+around the weld. On the card the solvers replay CUDA graphs
+(``inertial.InertialGraph``), one per shape and schedule.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,6 +46,9 @@ BA_MAX_OBS = 16384
 # inertial window buckets (LocalInertialBA uses ~10 temporal keyframes)
 IBA_MAX_KFS = 8  # temporal chain window
 IBA_MAX_KFS_TOTAL = 16  # chain + fixed out-of-window observers
+# MergeInertialBA: 2*Nd = 12 free states, the 2 window anchors and the
+# covisible fixed observers
+MERGE_IBA_SLOTS = 24
 IBA_MAX_PTS = 2048
 IBA_MAX_OBS = 4096
 # FullInertialBA's caps (the whole chain buckets to powers of two up to
@@ -72,13 +77,13 @@ class LocalMapping:
                  imu_calib: imu_ops.ImuCalib = None, mono: bool = False,
                  imu_init_time: float = 1.0, viba1_time: float = 5.0,
                  viba2_time: float = 15.0, imu_min_kfs: int = 6):
-        """imu_calib: the IMU calibration of an RGB-D inertial map (None
-        without an IMU); imu_init_time, viba1_time, viba2_time: the seconds
-        of keyframe chain after which the first initialization, VIBA1 and
-        VIBA2 run; imu_min_kfs: the chain length of the first."""
-        if imu_calib is not None and mono:
-            raise NotImplementedError(
-                "the monocular-inertial schedule waits for ROADMAP item 15b")
+        """imu_calib: the IMU calibration of an inertial map (None without
+        an IMU); mono: a monocular inertial map (its scale unknown until the
+        IMU initializes); imu_init_time, viba1_time, viba2_time: the
+        seconds of keyframe chain after which the first initialization,
+        VIBA1 and VIBA2 run; imu_min_kfs: the chain length of the first. A
+        monocular map waits for at least 2 s and 10 keyframes: its scale is
+        weakly observable from a short gentle chain."""
         self.map = slam_map
         self.cam = cam
         self.bf = bf
@@ -86,10 +91,10 @@ class LocalMapping:
         self.profile = profile
         self.imu_calib = imu_calib
         self.mono = mono
-        self.imu_init_time = imu_init_time
+        self.imu_init_time = max(imu_init_time, 2.0) if mono else imu_init_time
         self.viba1_time = viba1_time
         self.viba2_time = viba2_time
-        self.imu_min_kfs = imu_min_kfs
+        self.imu_min_kfs = max(imu_min_kfs, 10) if mono else imu_min_kfs
         # (s, R_wg) the system hands to tracking after an IMU
         # initialization rescaled the map
         self.pending_map_transform = None
@@ -324,9 +329,10 @@ class LocalMapping:
         return chain[::-1]
 
     def _imu_step(self, kid: int):
-        """The RGB-D inertial schedule: the first initialization once the
-        chain is long enough, then VIBA1 and VIBA2 (independent gates, each
-        latched only when its solve was applied)."""
+        """The inertial schedule: the first initialization once the chain is
+        long enough, then VIBA1 and VIBA2 (independent gates, each latched
+        only when its solve was applied); for a monocular map, the scale
+        refinement on every keyframe while the chain spans under 50 s."""
         kf = self.map.keyframes.get(kid)
         if kf is None:
             return
@@ -338,7 +344,8 @@ class LocalMapping:
         if not m.imu_initialized:
             if len(chain) >= self.imu_min_kfs and span >= self.imu_init_time:
                 # the first initialization: strong bias priors
-                self._initialize_imu(chain, prior_g=1e2, prior_a=1e5)
+                self._initialize_imu(chain, prior_g=1e2,
+                                     prior_a=1e6 if self.mono else 1e5)
         else:
             if not m.imu_ba1 and span >= self.viba1_time:
                 # VIBA1: the priors relax once the trajectory excited the IMU
@@ -348,14 +355,29 @@ class LocalMapping:
                 # VIBA2: a free refinement
                 if self._initialize_imu(chain, prior_g=0.0, prior_a=0.0):
                     m.imu_ba2 = True
+            if self.mono and span < 50.0:
+                # ScaleRefinement: scale and gravity only, on the biases
+                # pinned to the current estimate, so the residual scale
+                # drift a free joint solve trades into the acc bias becomes
+                # observable. The biases are not rewritten: overwriting the
+                # keyframes' refined biases with the stale shared estimate
+                # would undo the inertial BA's walk tracking
+                self._initialize_imu(chain, prior_g=1e8, prior_a=1e8,
+                                     fiba=False, min_apply=0.005,
+                                     update_bias=False)
 
     def _initialize_imu(self, chain, prior_g: float, prior_a: float,
-                        fiba: bool = True) -> bool:
+                        fiba: bool = True, min_apply: float = 0.0,
+                        update_bias: bool = True) -> bool:
         """InertialOptimization and ApplyScaledRotation: the scale, gravity,
         shared bias and velocities on the fixed visual poses of the chain
-        (padded to a power-of-two bucket), then the map rotated and
-        rescaled so gravity is (0,0,-9.81) metric, then FullInertialBA.
-        Returns True when an estimate was applied."""
+        (padded to a power-of-two bucket; the scale free on a monocular
+        map), then the map rotated and rescaled so gravity is (0,0,-9.81)
+        metric, then FullInertialBA (``fiba``). Returns True when an
+        estimate was computed and applied, or found below ``min_apply``:
+        a scale within min_apply of 1 with a gravity tilt under 0.2 degrees
+        is not applied. update_bias=False leaves the bias state alone (the
+        scale refinement)."""
         from ..utils import verbose
 
         m = self.map
@@ -415,6 +437,8 @@ class LocalMapping:
             verbose.print_mess("IMU init rejected: scale out of range",
                                verbose.Level.NORMAL)
             return False
+        if min_apply > 0 and abs(s - 1.0) < min_apply and tilt < 0.2:
+            return True  # converged: the refinement is below the threshold
         bg = bg0 + np.asarray(res.bg, np.float32)
         ba = ba0 + np.asarray(res.ba, np.float32)
         vel = np.asarray(res.vel, np.float32)
@@ -424,10 +448,12 @@ class LocalMapping:
         for i, k in enumerate(chain):
             kf = m.keyframes[k]
             kf.vel = (R_wg.T @ vel[i]).astype(np.float32)
-            kf.bg = bg.copy()
-            kf.ba = ba.copy()
-        m.imu_bg = bg
-        m.imu_ba = ba
+            if update_bias:
+                kf.bg = bg.copy()
+                kf.ba = ba.copy()
+        if update_bias:
+            m.imu_bg = bg
+            m.imu_ba = ba
         m.imu_initialized = True
         # compose with a transform tracking has not consumed yet
         if self.pending_map_transform is None:
@@ -447,6 +473,8 @@ class LocalMapping:
 
     def _local_inertial_ba(self, kid: int, window: int = IBA_MAX_KFS,
                            fix_anchor: bool = True, full_chain: bool = False,
+                           chain_override: Optional[List[int]] = None,
+                           force_fixed: Sequence[int] = (),
                            total_slots: int = IBA_MAX_KFS_TOTAL):
         """The joint visual-inertial window BA (optim/viba): the temporal
         chain's body states and the window's landmarks in one solve, with
@@ -455,13 +483,24 @@ class LocalMapping:
         full_chain=True with fix_anchor=False is FullInertialBA: every chain
         keyframe's state is free (power-of-two state buckets, landmarks and
         observations bucketed up to FIBA_MAX_*, a cap logged), with a
-        larger LM and PCG budget."""
+        larger LM and PCG budget.
+
+        chain_override: the free states' keyframes, given directly
+        (MergeInertialBA's two temporal windows around a weld); an IMU edge
+        joins two consecutive entries only where they are prev_kf-linked,
+        so disjoint runs couple through shared landmarks. force_fixed: the
+        keyframes that become fixed pose states first (the windows'
+        anchors), before the strongest out-of-window observers fill the
+        remaining slots."""
         from ..utils import verbose
 
         m = self.map
         cal = self.imu_calib
-        whole = self._kf_chain(kid)
-        chain = whole if full_chain else whole[-window:]
+        if chain_override is not None:
+            chain = list(chain_override)
+        else:
+            whole = self._kf_chain(kid)
+            chain = whole if full_chain else whole[-window:]
         T = len(chain)
         if T < 3:
             return
@@ -496,21 +535,23 @@ class LocalMapping:
         # ranked by how many optimized landmarks each observes: the slots go
         # to the strongest covisible anchors
         chain_set = set(chain)
-        fixed_ids: List[int] = []
+        fixed_ids: List[int] = [k for k in force_fixed
+                                if k in m.keyframes and k not in chain_set]
         if not full_chain:
             counts: Dict[int, int] = {}
             for mp in pt_ids:
                 for k in m.obs.get(mp, {}):
-                    if k not in chain_set:
+                    if k not in chain_set and k not in fixed_ids:
                         counts[k] = counts.get(k, 0) + 1
-            budget = max(total_slots - T, 0)
+            budget = max(total_slots - T - len(fixed_ids), 0)
             ranked = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))
-            fixed_ids = [k for k, _ in ranked[:budget]]
+            fixed_ids += [k for k, _ in ranked[:budget]]
             if len(counts) > budget:
                 verbose.print_mess(
                     f"LocalInertialBA: fixed-observer cap, anchoring on the "
                     f"{budget} strongest of {len(counts)} out-of-window "
                     "observers", verbose.Level.VERBOSE)
+            fixed_ids = fixed_ids[:max(total_slots - T, 0)]
         cam_ids = chain + fixed_ids
         cam_index = {k: i for i, k in enumerate(cam_ids)}
         Kp = _bucket(len(cam_ids), lo=8) if full_chain else total_slots
@@ -658,9 +699,47 @@ class LocalMapping:
         m.change_index += 1
 
     def merge_inertial_ba(self, curr_kid: int, merge_kid: int):
-        """MergeInertialBA (the inertial BA around a map weld)."""
-        raise NotImplementedError(
-            "the inertial BA after a map merge waits for ROADMAP item 15b")
+        """MergeInertialBA: the visual-inertial BA over a map weld's region,
+        in two temporal windows, all free: Nd = 6 keyframes back from the
+        current one, and Nd/2 before the matched (merge) keyframe extended
+        forward by its successors up to 2*Nd states in all; each anchored
+        by the fixed keyframe before it. The two prev_kf chains stay
+        disjoint after a weld, so the windows couple through the fused
+        landmarks of the welding region and the covisible fixed observers.
+        A window without a predecessor gives up its oldest state as a fixed
+        pose anchor."""
+        m = self.map
+        if curr_kid not in m.keyframes or merge_kid not in m.keyframes:
+            return
+        Nd = 6
+        chain_a = self._kf_chain(curr_kid)
+        win_a = chain_a[-Nd:]
+        anchor_a = chain_a[-Nd - 1] if len(chain_a) > Nd else None
+        chain_b = self._kf_chain(merge_kid)
+        win_b = chain_b[-(Nd // 2):]
+        anchor_b = chain_b[-(Nd // 2) - 1] if len(chain_b) > Nd // 2 else None
+        # extend the merge window forward (the successor walk)
+        nxt = {kf.prev_kf: k for k, kf in m.keyframes.items()
+               if kf.prev_kf >= 0}
+        seen = set(win_a) | set(win_b)
+        while len(win_a) + len(win_b) < 2 * Nd:
+            nk = nxt.get(win_b[-1])
+            if nk is None or nk in seen:
+                break
+            win_b.append(nk)
+            seen.add(nk)
+        # an anchor-less window: its oldest state becomes a fixed pose
+        if anchor_a is None and len(win_a) > 1:
+            anchor_a = win_a.pop(0)
+        if anchor_b is None and len(win_b) > 1:
+            anchor_b = win_b.pop(0)
+        anchors = [a for a in (anchor_b, anchor_a) if a is not None]
+        chain = win_b + win_a
+        if len(chain) < 3:
+            return
+        self._local_inertial_ba(
+            curr_kid, chain_override=chain, force_fixed=anchors,
+            fix_anchor=not anchors, total_slots=MERGE_IBA_SLOTS)
 
     # -- MapPointCulling ------------------------------------------------------
 

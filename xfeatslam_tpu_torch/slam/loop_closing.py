@@ -19,8 +19,12 @@ draws come from ``torch.multinomial`` with a generator seeded by the
 keyframe id (``kid + 7777`` for merges), where the JAX package seeds a JAX
 PRNG key the same way (``_minimal_sets``). On an IMU-initialized map the
 essential graph is the 4-DoF one (yaw and translation,
-``optimize_pose_graph(mode="4dof")``); a merge with an inertial map (its
-welding inertial BA) waits for ROADMAP item 15b.
+``optimize_pose_graph(mode="4dof")``). A weld that involves an inertial
+map carries the moved map's velocities (rotated and scaled by the weld's
+Sim3) and its IMU chain links into the old map, settles the IMU flags and
+biases, and, when the welded map is IMU-initialized, runs the welding
+inertial BA hook (``welding_iba``, which the System wires to
+``LocalMapping.merge_inertial_ba``) in place of the global BA.
 
 ``_search_by_sim3`` keys its mutual map by the kf1 slot as the JAX package
 does (ROADMAP trap T.3): kept for parity.
@@ -44,7 +48,6 @@ from .retrieval import Retrieval, global_desc_dim
 
 PAIR_BUCKET = 512  # padded matched map-point pairs for Sim3 verification
 RANSAC_ITERS = 128
-_INERTIAL = "merging inertial maps waits for ROADMAP item 15b"
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -110,6 +113,10 @@ class LoopClosing:
         self.n_sim3_extended = 0  # pairs added by SearchBySim3
         self.closed: List[tuple] = []  # (kid, cand) corrected loops
         self.merged: List[tuple] = []  # (new_map_id, old_map_id)
+        # MergeInertialBA: the System wires this to
+        # LocalMapping.merge_inertial_ba; called with (the welded current
+        # kid, the matched old-map kid) after a merge into an inertial map
+        self.welding_iba = None
         # temporal consistency: (candidate covisibility group, count, stamp)
         self._consistent: List[Tuple[set, int, int]] = []
         # budgeted GBA (the reference's detached, abortable GBA thread as
@@ -872,14 +879,13 @@ class LoopClosing:
         """Weld the active (new) map into the matched (old) map: express
         the new map's geometry in the old map's world frame through the
         verified Sim3, move keyframes and points over (ids shifted), fuse
-        the duplicates around the weld, then a GBA; the old map becomes the
+        the duplicates around the weld, then a GBA (the welding inertial BA
+        when the welded map is IMU-initialized); the old map becomes the
         active one.
 
         X_cam_kid = S12(X_cam_ckid) and X_cam_kid = S_kid(X_w_new), so
         X_w_new = S_kid^{-1} S12 S_ckid (X_w_old) =: D(X_w_old): new-map
         poses become S' = S o D, points X_old = D^{-1}(X_new)."""
-        if m_new.imu_initialized or m_old.imu_initialized:
-            raise NotImplementedError(_INERTIAL)
         kf1 = m_new.keyframes[kid]
         kf2 = m_old.keyframes[ckid]
         mid = _sim3_mul(_sim3_inv(1.0, kf1.R, kf1.t), (s12, R12, t12))
@@ -911,8 +917,13 @@ class LoopClosing:
                  for m in kf.mp_ids], np.int64)
             kf.parent = kf.parent + kid_offset if kf.parent >= 0 else -1
             kf.children = {c + kid_offset for c in kf.children}
+            # the inertial chain travels with the keyframe: world velocities
+            # rotate and scale like position derivatives; the biases and the
+            # preintegrations are body-frame and unchanged
             if kf.prev_kf >= 0:
                 kf.prev_kf = kf.prev_kf + kid_offset
+            if kf.vel is not None:
+                kf.vel = (sDi * (RDi @ kf.vel)).astype(np.float32)
             m_old.keyframes[kf.kid] = kf
             m_old.covis.setdefault(kf.kid, {})
             for slot in np.nonzero(kf.mp_ids >= 0)[0]:
@@ -933,6 +944,21 @@ class LoopClosing:
         for cull_kid, (parent, R_cp, t_cp) in m_new.culled.items():
             m_old.culled[cull_kid + kid_offset] = (
                 parent + kid_offset if parent >= 0 else -1, R_cp, t_cp)
+        # the IMU state: the welded map keeps the old map's frame. If only
+        # the moved map was initialized, its gravity alignment did not
+        # survive the weld: the flags are cleared so local mapping's
+        # schedule initializes the intact chain again in the merged frame,
+        # from the moved map's biases; if both were, the moved map's
+        # (fresher) biases are adopted
+        if m_new.imu_initialized and not m_old.imu_initialized:
+            m_old.imu_initialized = False
+            m_old.imu_ba1 = False
+            m_old.imu_ba2 = False
+            m_old.imu_bg = m_new.imu_bg.copy()
+            m_old.imu_ba = m_new.imu_ba.copy()
+        elif m_new.imu_initialized:
+            m_old.imu_bg = m_new.imu_bg.copy()
+            m_old.imu_ba = m_new.imu_ba.copy()
         # fuse duplicate landmarks around the weld: the old map's window
         # projected into the moved keyframe and its covisibles, the old
         # side winning
@@ -942,7 +968,12 @@ class LoopClosing:
         if n_weld_fused:
             print_mess(f"weld fusion bound {n_weld_fused} landmark "
                        f"duplicates", Level.VERBOSE)
-        if self.run_gba:
+        if m_old.imu_initialized and self.welding_iba is not None:
+            # MergeInertialBA: the two temporal windows around the weld
+            # refined jointly with the IMU chains, in place of a visual GBA
+            # (the inertial chain must stay consistent)
+            self.welding_iba(new_kid, ckid)
+        elif self.run_gba:
             self.global_bundle_adjust()
         # the old map becomes active, the new one dissolves; the remap
         # record lets trajectory resolution chase frames into the weld

@@ -16,9 +16,11 @@ JAX package's loader does not read: each keyframe's keypoint octaves
 (the JAX package's) loads with zeros there, as the JAX package loads it;
 the atlas takes the maps' pyramid geometry from their headers.
 
-The keyframes' inertial preintegrations (``kf{kid}_pre``), the inertial
-atlas files, wait for ROADMAP item 15b: a file that holds one raises on
-load, and a keyframe that carries one raises on save.
+A keyframe's inertial state travels too: its velocity and biases
+(``kf{kid}_imu``), its chain link (``kf{kid}_meta``) and its preintegration
+from the previous keyframe (``kf{kid}_pre``) as the JAX package's flat
+292-float record (dt, dR, dV, dP, cov15, JRg, JVg, JVa, JPg, JPa, bg, ba;
+empty without one), with the map's IMU flags and biases in the header.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import zipfile
 
 import numpy as np
 
+from ..ops.imu import Preintegrated
 from .atlas import Atlas
 from .map import KeyFrame, SlamMap
 
@@ -37,8 +40,10 @@ FORMAT_VERSION = 1
 # the checksum's namespace: the JAX package's name, so both packages accept
 # each other's files
 _CHECKSUM_TAG = "xfeatslam_tpu"
-_PREINTEGRATION = ("keyframe preintegrations in atlas files wait for "
-                   "ROADMAP item 15b")
+# the flat record of a preintegration: each field's shape, in file order
+_PRE_SHAPES = ((), (3, 3), (3,), (3,), (15, 15), (3, 3), (3, 3), (3, 3),
+               (3, 3), (3, 3), (3,), (3,))
+PRE_RECORD_SIZE = sum(int(np.prod(s)) for s in _PRE_SHAPES)  # 292
 
 
 def _config_checksum(desc_dim: int) -> str:
@@ -48,13 +53,33 @@ def _config_checksum(desc_dim: int) -> str:
         f"{_CHECKSUM_TAG}:v{FORMAT_VERSION}:d{desc_dim}".encode()).hexdigest()
 
 
+def flatten_pre(pre) -> np.ndarray:
+    """A host ``Preintegrated`` as the flat float32 (292,) record."""
+    return np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                           for a in pre])
+
+
+def unflatten_pre(v: np.ndarray) -> Preintegrated:
+    """The flat (292,) record as a host ``Preintegrated`` (dt a float32
+    scalar, the rest float32 arrays)."""
+    v = np.asarray(v, np.float32)
+    if v.shape != (PRE_RECORD_SIZE,):
+        raise ValueError(f"a preintegration record has {PRE_RECORD_SIZE} "
+                         f"floats, not {v.shape}")
+    fields, i = [], 0
+    for shape in _PRE_SHAPES:
+        n = int(np.prod(shape))
+        fields.append(v[i:i + n].reshape(shape).copy())
+        i += n
+    fields[0] = np.float32(fields[0])
+    return Preintegrated(*fields)
+
+
 def save_map(m: SlamMap, f):
     kids = sorted(m.keyframes)
     kf_blobs = {}
     for kid in kids:
         kf = m.keyframes[kid]
-        if kf.pre_kf is not None:
-            raise NotImplementedError(_PREINTEGRATION)
         kf_blobs[f"kf{kid}_kpts_un"] = kf.kpts_un
         kf_blobs[f"kf{kid}_desc"] = kf.desc
         kf_blobs[f"kf{kid}_valid"] = kf.valid
@@ -68,11 +93,14 @@ def save_map(m: SlamMap, f):
         kf_blobs[f"kf{kid}_meta"] = np.array(
             [kf.frame_id, kf.parent, kf.prev_kf], np.int64)
         kf_blobs[f"kf{kid}_ts"] = np.float64(kf.timestamp)
-        # inertial state: velocity (nan when not estimated) and biases
+        # inertial state: velocity (nan when not estimated), biases and the
+        # flat preintegration from prev_kf (empty without one)
         vel = np.full(3, np.nan, np.float32) if kf.vel is None else kf.vel
         kf_blobs[f"kf{kid}_imu"] = np.concatenate(
             [vel, kf.bg, kf.ba]).astype(np.float32)
-        kf_blobs[f"kf{kid}_pre"] = np.zeros(0, np.float32)
+        kf_blobs[f"kf{kid}_pre"] = (np.zeros(0, np.float32)
+                                    if kf.pre_kf is None
+                                    else flatten_pre(kf.pre_kf))
     n = m.points.n
     obs_flat = []
     for mp, o in m.obs.items():
@@ -147,7 +175,7 @@ def load_map(f) -> SlamMap:
             kf.ba = imu[6:9].copy()
         pre = data.get(f"kf{kid}_pre")
         if pre is not None and len(pre):
-            raise NotImplementedError(_PREINTEGRATION)
+            kf.pre_kf = unflatten_pre(pre)
         m.keyframes[kid] = kf
         m.covis.setdefault(kid, {})
     m.kf_origin = header["kf_origin"]

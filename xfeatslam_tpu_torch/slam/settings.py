@@ -7,9 +7,8 @@ KannalaBrandt8 cameras; the stereo rig (camera 2, ``Stereo.T_c1_c2`` or
 ``Stereo.b``, the fisheye lapping columns); an unrectified pinhole rig's
 rectification maps by ``precompute_rectification`` and ``rectify``
 (``utils/rectification``, numpy in place of ``cv2``); the IMU section
-(``ops/imu.ImuCalib``, the IMU rate and the initialization schedule). Of
-the inertial sensors IMU_RGBD is read; IMU_MONOCULAR and IMU_STEREO raise
-``NotImplementedError`` naming ROADMAP item 15b.
+(``ops/imu.ImuCalib``, the IMU rate and the initialization schedule) of
+the three inertial sensors, IMU_MONOCULAR, IMU_STEREO and IMU_RGBD.
 """
 
 from __future__ import annotations
@@ -25,7 +24,6 @@ from ..utils import opencv_yaml
 from ..utils import rectification
 
 _INERTIAL = ("IMU_MONOCULAR", "IMU_STEREO", "IMU_RGBD")
-_UNPORTED_INERTIAL = ("IMU_MONOCULAR", "IMU_STEREO")
 
 
 class SettingsError(ValueError):
@@ -113,19 +111,15 @@ class Settings:
         """Read a config, as the JAX package's ``from_yaml`` does (camera
         1, camera 2 and the stereo section, image size and resize, RGB-D,
         extractor and system sections; an unrectified pinhole stereo rig's
-        rectification maps). sensor: None (lenient) or MONOCULAR / STEREO
-        / RGBD (enum or string), which turns on the reference's
-        required-parameter errors for that sensor's sections (IMU_RGBD
-        too). IMU_MONOCULAR and IMU_STEREO raise naming item 15b."""
+        rectification maps). sensor: None (lenient) or one of MONOCULAR /
+        STEREO / RGBD / IMU_MONOCULAR / IMU_STEREO / IMU_RGBD (enum or
+        string), which turns on the reference's required-parameter errors
+        for that sensor's sections."""
         d = opencv_yaml.load(path)
         if hasattr(sensor, "name"):
             sensor = sensor.name
-        if sensor in _UNPORTED_INERTIAL:
-            raise NotImplementedError(
-                f"sensor {sensor}: monocular and stereo inertial wait for "
-                "ROADMAP item 15b")
         strict = sensor is not None
-        stereo = sensor == "STEREO"
+        stereo = sensor in ("STEREO", "IMU_STEREO")
         rgbd = sensor in ("RGBD", "IMU_RGBD")
         inertial = sensor in _INERTIAL
 

@@ -14,14 +14,17 @@ trajectory savers and the tracked-state getters are here. The feature
 backend is XFeat or ORB (``backend="orb"`` or ``USE_ORB``). A STEREO
 session takes rectified pairs (``track_stereo``; ``Settings.rectify``
 rectifies a raw pinhole pair first) and runs the RGB-D tracker on their
-stereo depth, as the JAX package's System does. An IMU_RGBD session
-(``Settings.imu`` required) passes each frame's IMU samples to
+stereo depth, as the JAX package's System does. The inertial sensors
+(IMU_MONOCULAR, IMU_STEREO, IMU_RGBD; ``Settings.imu`` required) pass each
+frame's IMU samples to ``track_monocular`` / ``track_stereo`` /
 ``track_rgbd(..., imu=...)``: tracking preintegrates them and, once local
 mapping has initialized the IMU (rotating and rescaling the map, which the
-System hands on to tracking), solves visual-inertial poses. Not ported yet,
-each raising ``NotImplementedError`` with its ROADMAP item: the monocular
-and stereo inertial sensors (item 15b) and the viewer and map export (item
-16).
+System hands on to tracking), solves visual-inertial poses. A monocular
+inertial map initializes with a free scale and refines it while its chain
+is young; a map weld with an IMU-initialized map runs the welding inertial
+BA (``LocalMapping.merge_inertial_ba``) in place of the global BA. Not
+ported yet, each raising ``NotImplementedError`` with its ROADMAP item: the
+viewer and map export (item 16).
 """
 
 from __future__ import annotations
@@ -59,10 +62,7 @@ class Sensor(enum.Enum):
 
 
 _INERTIAL = {Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO, Sensor.IMU_RGBD}
-_UNPORTED_SENSORS = {
-    Sensor.IMU_MONOCULAR: "monocular inertial waits for ROADMAP item 15b",
-    Sensor.IMU_STEREO: "stereo inertial waits for ROADMAP item 15b",
-}
+_MONO_LIKE = {Sensor.MONOCULAR, Sensor.IMU_MONOCULAR}
 
 
 class System:
@@ -77,9 +77,6 @@ class System:
         enable_loop_closing (with mapping) builds LoopClosing, as in the
         JAX package. device: where the tensors live, CUDA unless given.
         An inertial sensor needs the settings' IMU section."""
-        if sensor in _UNPORTED_SENSORS:
-            raise NotImplementedError(
-                f"sensor {sensor.name}: {_UNPORTED_SENSORS[sensor]}")
         if backend is None:
             backend = "orb" if os.environ.get("USE_ORB") else "xfeat"
         if backend not in ("xfeat", "orb"):
@@ -146,16 +143,29 @@ class System:
             timer=self.timer,
             retrieval=(self.loop_closing.retrieval
                        if self.loop_closing is not None else None),
-            sensor="mono" if sensor == Sensor.MONOCULAR else "rgbd",
+            sensor="mono" if sensor in _MONO_LIKE else "rgbd",
             imu_calib=self.imu_calib)
         self.local_mapping = None
         if enable_mapping:
             self.local_mapping = LocalMapping(
                 self.map, settings.cam, settings.bf, self.device,
                 profile=profile, imu_calib=self.imu_calib,
+                mono=sensor == Sensor.IMU_MONOCULAR,
                 imu_init_time=settings.imu_init_time,
                 viba1_time=settings.viba1_time,
                 viba2_time=settings.viba2_time)
+            if self.loop_closing is not None and self.imu_calib is not None:
+                # MergeInertialBA: after an inertial map weld, the two
+                # temporal windows around the weld are refined jointly with
+                # the IMU chains. The hook fires mid-merge, before
+                # _adopt_merged_map rebinds the maps: local mapping is
+                # pointed at the welded map first
+                def _welding_iba(kid, merge_kid):
+                    self.local_mapping.map = self.loop_closing.map
+                    self.local_mapping._ba_session = None
+                    self.local_mapping.merge_inertial_ba(kid, merge_kid)
+
+                self.loop_closing.welding_iba = _welding_iba
 
     def track_rgbd(self, gray: np.ndarray, depth_raw: np.ndarray,
                    timestamp: float, imu=None):
@@ -474,6 +484,32 @@ class System:
     def dump_timing(self, path: str):
         """ExecMean.txt-style per-stage stats (REGISTER_TIMES role)."""
         self.timer.dump(path)
+
+    def save_debug_data(self, init_idx: int, out_dir: str = "."):
+        """System::SaveDebugData: the record of the inertial
+        initializations of the latest section (its init trajectory in EuRoC
+        format, and per solve the scale, the gravity direction, the solver
+        cost and the chain's keyframe count) into the
+        init_{FrameTrajectory,Scale,GDir,CompCost,KF}_* files, with the JAX
+        package's names and formats. Nothing is written before the first
+        initialization."""
+        lm = self.local_mapping
+        if lm is None or not lm.init_debug:
+            return
+        sect = lm.init_debug[-1][0]
+        self.save_trajectory_euroc(os.path.join(
+            out_dir, f"init_FrameTrajectory_{sect}_{init_idx}.txt"))
+        recs = [rec for rec in lm.init_debug if rec[0] == sect]
+        for name, col in (("Scale", 1), ("CompCost", 3), ("KF", 4)):
+            with open(os.path.join(out_dir, f"init_{name}_{sect}.txt"),
+                      "a") as f:
+                for rec in recs:
+                    f.write(f"{rec[col]}\n")
+        with open(os.path.join(out_dir, f"init_GDir_{sect}.txt"), "a") as f:
+            for rec in recs:
+                R = rec[2]
+                for r in range(3):
+                    f.write(",".join(f"{R[r, c]}" for c in range(3)) + "\n")
 
     def shutdown(self):
         self._is_shutdown = True

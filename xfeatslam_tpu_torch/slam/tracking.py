@@ -1,5 +1,5 @@
 """Tracking: the per-frame state machine, monocular, stereo and RGB-D,
-non-inertial.
+with or without an IMU.
 
 Counterpart of ``xfeatslam_tpu/slam/tracking.py`` (the role of ORB-SLAM3's
 Tracking.cc): the states NOT_INITIALIZED / OK / RECENTLY_LOST / LOST,
@@ -31,16 +31,15 @@ RANSAC, the pose LM and the guided widening ladder); localization mode
 visual odometry on the last frame's depth points off the map
 (``vo_mode``).
 
-Visual-inertial RGB-D tracking (``imu_calib``): IMU samples are queued
-(``grab_imu``) and preintegrated between frames (``ops/imu``, a CUDA graph
-per window bucket on the card); once the map is IMU-initialized the pose is
-predicted from the last keyframe's state and solved by the visual-inertial
-pose LMs (``optim/inertial``: anchored to the last keyframe, or chained
-through the previous frame's marginalized prior), each a CUDA graph on the
-card. Inertial frames take the split path (projection matching, then the
-pose solve), as in the JAX package. Not ported yet, raising
-``NotImplementedError`` where it would run: IMU samples with monocular or
-stereo frames (ROADMAP item 15b).
+Visual-inertial tracking (``imu_calib``; RGB-D, stereo or monocular
+frames): IMU samples are queued (``grab_imu``) and preintegrated between
+frames (``ops/imu``, a CUDA graph per window bucket on the card); once the
+map is IMU-initialized the pose is predicted from the last keyframe's state
+and solved by the visual-inertial pose LMs (``optim/inertial``: anchored to
+the last keyframe, or chained through the previous frame's marginalized
+prior), each a CUDA graph on the card. Inertial frames take the split path
+(projection matching, then the pose solve), as in the JAX package; a
+monocular inertial map starts its IMU chain at its two initial keyframes.
 """
 
 from __future__ import annotations
@@ -176,13 +175,9 @@ class Tracking:
         the keyframe database that relocalization queries (loop closing's;
         None without it, and candidates come from a brute-force cosine over
         the keyframes' global descriptors). imu_calib: the IMU calibration
-        of visual-inertial RGB-D tracking (None without an IMU)."""
+        of visual-inertial tracking (None without an IMU)."""
         if sensor not in ("rgbd", "mono"):
-            raise NotImplementedError(
-                f"sensor {sensor!r}: stereo waits for ROADMAP item 14")
-        if imu_calib is not None and sensor != "rgbd":
-            raise NotImplementedError(
-                "monocular inertial tracking waits for ROADMAP item 15b")
+            raise ValueError(f"sensor {sensor!r}: 'rgbd' or 'mono'")
         self.sensor = sensor
         self.pipeline = pipeline
         self.map = slam_map
@@ -278,11 +273,9 @@ class Tracking:
     def grab_stereo(self, gray_l, gray_r, timestamp, imu=None):
         """A rectified stereo pair (GrabImageStereo): the stereo frame step
         first (XFeat), else the pair built by ``build_stereo``; stereo depth
-        then drives the RGB-D initialization and point creation."""
-        if imu:
-            raise NotImplementedError(
-                "IMU samples with stereo frames: stereo inertial waits for "
-                "ROADMAP item 15b")
+        then drives the RGB-D initialization and point creation. imu: as
+        grab_rgbd's."""
+        self._queue_imu(imu)
         frame = self._grab_stereo_fused(gray_l, gray_r, timestamp)
         if frame is None:
             with self._span("track.frame_build"):
@@ -291,11 +284,8 @@ class Tracking:
 
     def grab_mono(self, gray, timestamp, imu=None):
         """A monocular frame: the frame step without depth first, as
-        grab_rgbd."""
-        if imu:
-            raise NotImplementedError(
-                "IMU samples with monocular frames: monocular inertial waits "
-                "for ROADMAP item 15b")
+        grab_rgbd (imu: as grab_rgbd's)."""
+        self._queue_imu(imu)
         frame = self._grab_rgbd_fused(gray, None, timestamp)
         if frame is None:
             with self._span("track.frame_build"):
@@ -801,7 +791,7 @@ class Tracking:
             return False
         ref = self._mono_init_frame
         if ref is None or ref.n_valid <= 100:
-            self._mono_init_frame = frame
+            self._hold_mono_init_frame(frame)
             return False
         res = fetch(matching.search_window(
             self._t(ref.kpts_un), self._t(ref.desc), self._t(ref.valid),
@@ -814,7 +804,7 @@ class Tracking:
         mask = matching.rotation_consistency_filter(
             ref.angle, frame.angle, np.clip(idx, 0, None), res.mask)
         if mask.sum() < 100:  # the reference asks for >= 100 matches
-            self._mono_init_frame = frame
+            self._hold_mono_init_frame(frame)
             return False
 
         uv1 = np.where(mask[:, None], ref.kpts_un, 0).astype(np.float32)
@@ -825,14 +815,16 @@ class Tracking:
         tv = fetch(two_view.reconstruct_two_views(
             self._t(uv1), self._t(uv2), valid, self.cam.K.to(self.device),
             idx=two_view.draw_minimal_sets(valid, gen)))
-        if not bool(tv.success):
-            return False
-
         good = tv.good & mask
         X = tv.points
         # median-depth normalization (CreateInitialMapMonocular)
-        med_depth = float(np.median(X[good][:, 2]))
+        med_depth = (float(np.median(X[good][:, 2])) if bool(tv.success)
+                     else 0.0)
         if med_depth <= 0:
+            # the reference is kept: counted, since kf2's IMU edge then
+            # spans more than the frame's last segment (ROADMAP C.18)
+            self.stats["two_view_fail"] = (
+                self.stats.get("two_view_fail", 0) + 1)
             return False
         X = X / med_depth
         ref.R = np.eye(3, dtype=np.float32)
@@ -840,8 +832,18 @@ class Tracking:
         frame.R = tv.R.astype(np.float32)
         frame.t = (tv.t / med_depth).astype(np.float32)
 
+        # the preintegration from the held reference frame to this one
+        pre_init = self._pre_cur
         kf1 = self._make_keyframe(ref)
         kf2 = self._make_keyframe(frame)
+        if self.imu_calib is not None:
+            # the IMU chain starts at kf1; the kf1 -> kf2 edge is the
+            # accumulation since the reference frame (the frame's own
+            # last-frame segment when the reference is the previous frame)
+            kf1.pre_kf = None
+            kf1.prev_kf = -1
+            kf2.pre_kf = pre_init
+            kf2.prev_kf = kf1.kid
         for slot1 in np.nonzero(good)[0]:
             slot2 = int(idx[slot1])
             mp = self.map.create_point(X[slot1].astype(np.float32),
@@ -862,6 +864,14 @@ class Tracking:
         self.last_kf_frame_id = frame.fid
         self._mono_init_frame = None
         return True
+
+    def _hold_mono_init_frame(self, frame: Frame):
+        """Make ``frame`` the reference of the next two-view attempts. With
+        an IMU the accumulation restarts at it, so the initial keyframe
+        pair's edge spans exactly the reference frame to the second."""
+        self._mono_init_frame = frame
+        if self.imu_calib is not None:
+            self._pre_cur = None
 
     # the initial GBA's padded problem: 4 cameras (2 used), 1024 points,
     # 2048 observations
@@ -1564,8 +1574,11 @@ class Tracking:
         return kf
 
     def _need_new_keyframe(self, frame: Frame) -> bool:
-        """NeedNewKeyFrame: reference ratio (0.9 for monocular maps),
-        close-point pressure and the maximum interval."""
+        """NeedNewKeyFrame: reference ratio (0.9 for monocular maps, 0.75
+        for monocular inertial ones above 350 local-map inliers),
+        close-point pressure and the maximum interval; with an IMU the
+        temporal rule, and for monocular inertial tracking the weakly
+        tracked frame."""
         if self.ref_kf is None:
             return False
         ref = self.map.keyframes.get(self.ref_kf)
@@ -1577,8 +1590,10 @@ class Tracking:
         ratio = self.cfg.kf_ref_ratio if self.map.num_keyframes() >= 2 else 0.4
         if self.sensor == "mono" and self.map.num_keyframes() >= 2:
             # monocular redundancy drops slowly: the reference asks for
-            # thRefRatio 0.9
-            ratio = 0.9
+            # thRefRatio 0.9, relaxed to 0.75 for IMU_MONOCULAR above 350
+            # local-map inliers
+            ratio = 0.75 if (self.imu_calib is not None
+                             and self.matches_inliers > 350) else 0.9
         ref_mps = ref.mp_ids[ref.mp_ids >= 0]
         n_ref = int((self.map.points.n_obs[ref_mps] >= min_obs).sum()) if len(ref_mps) else 0
         tracked = (frame.mp_ids >= 0) & frame.inlier
@@ -1602,9 +1617,11 @@ class Tracking:
             if (last_kf is not None
                     and frame.timestamp - last_kf.timestamp >= 0.5):
                 c3 = True
-        # c4 (weakly tracked monocular-inertial frames) waits with monocular
-        # inertial tracking for ROADMAP item 15b
-        return ((c1a or c1b or c1c) and c2) or c3
+        # c4: a weakly tracked monocular-inertial frame anchors a keyframe
+        # at once
+        c4 = (self.imu_calib is not None and self.sensor == "mono"
+              and 15 < n_tracked < 75)
+        return ((c1a or c1b or c1c) and c2) or c3 or c4
 
     def _create_keyframe(self, frame: Frame):
         """CreateNewKeyFrame: bind the tracked points, then create new close
