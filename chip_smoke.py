@@ -195,6 +195,34 @@ Phases, each fatal on failure:
      TestMergeInertialBA's welded 13-keyframe scene, built on the card
      (err1 < 0.5 err0); where a float32 LM decision differs, the fields it
      moves are held to the JAX tests' bars; the phase's time.
+ 20. in-framework training and the rest of ROADMAP item 16:
+     ``parallel/train.loss_fn`` at tools/train_xfeat.py's defaults (batch
+     16, 128x160, the contrast teacher, warm start from the shipped
+     weights) and with the peak teacher, loc_weight 0.5 and given
+     augmentation draws, each in float64 card against CPU (loss and aux
+     within 1e-5 relative, each gradient leaf within 1e-4 of its max abs;
+     the peak teacher held on its own, a cell differing only at an exact
+     tie of the response, and the card given the CPU's teacher), and the
+     trainer's float32 cuDNN path against the CPU's float64 taken on the
+     trainer's own ReLU decisions (the loss within 1e-5, each leaf within
+     1e-4 or 3x the CPU float32's own gap, each ReLU decided otherwise
+     within its layer's float32 error); two ``make_pool_trainer`` runs
+     from the same seed (4 calls of 16 steps, augmentation on), counted (no
+     kernel of the port's), the loss falling and the final weights
+     bit-identical, ms per step, device events per step, peak memory and
+     the step's bound; two runs of the trainer's steps without
+     ``train.deterministic()`` (ms per step, whether they agree); the train
+     tool twin's
+     ``main`` for 4 steps, its npz loaded back equal; ``eval_repeatability``
+     on 8 pairs, card against CPU within 0.02, counted (one
+     ``detect_candidates`` and one ``keypoint_desc`` a pair); bf16
+     extraction against float32 at tests/test_xfeat_bf16.py's bars and the
+     batched path's stage times at batch 32 in float32 and bf16
+     (``profile_pipeline``); an XFeat RGB-D System on 8 frames with
+     ``viewer_dir`` and ``viewer_port`` (live_frame.png, live_map.png,
+     map3d.json, session.gif, /state and a command through urllib,
+     ``export_map_html``); ``render_tum_dataset`` read back equal through
+     ``utils/io``.
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers (``orb_launches``, the
@@ -204,8 +232,9 @@ ORB kernels, whose ``launches`` are the ORB stereo path's;
 ``imu_rgbd_launches`` on the ORB IMU_RGBD path's; ``imu_mono_launches``
 on the ORB IMU_MONOCULAR path's, ``imu_stereo_launches`` on the ORB
 IMU_STEREO path's (its run 2) and ``imu_stereo_xfeat_launches`` on the
-XFeat IMU_STEREO path's, each from its own run with the counts reset just
-before it), the script's time, and as its last line
+XFeat IMU_STEREO path's, ``eval_launches`` on ``eval_repeatability``'s,
+each from its own run with the counts reset just before it), the script's
+time, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 no CUDA device is available or the package is missing.
 """
@@ -1085,18 +1114,20 @@ def center_err(R, t, pose):
     return float(np.linalg.norm(-R.T @ t + Rg.T @ tg))
 
 
-def frame_step_phase(model, ck, dev):
-    """The online RGB-D frame step on frames 1-5 of a synthetic sequence,
-    counted per frame, against the truth and the plain-kernel path; the
-    monocular configuration; no host sync inside a step; timings."""
+def frame_step_setup(model, dev, n_frames=N_FRAMES):
+    """A rendered sequence of ``n_frames`` at WxH, a map built from frame
+    0's keypoints, and the RGB-D frame step on it: ``step(i, R0, t0,
+    has_depth=True)`` eager and ``replay(i, R0, t0)`` through a
+    ``track_step.RgbdFrameStepGraph``. Returns (seq, cam, imgs, maps,
+    step, replay, graph)."""
     from xfeatslam_tpu_torch.models.extractor import extract_fn
     from xfeatslam_tpu_torch.ops import camera
     from xfeatslam_tpu_torch.ops import image as image_ops
-    from xfeatslam_tpu_torch.optim import pose_opt, track_step
+    from xfeatslam_tpu_torch.optim import track_step
     from xfeatslam_tpu_torch.utils import synthetic
 
     t0 = time.perf_counter()
-    seq = synthetic.make_sequence(N_FRAMES, (H, W))
+    seq = synthetic.make_sequence(n_frames, (H, W))
     Km = seq["K"]
     cam = camera.Pinhole.from_list([Km[0, 0], Km[1, 1], Km[0, 2], Km[1, 2]])
     imgs = [image_ops.to_float_image(g, dev) for g in seq["images"]]
@@ -1105,7 +1136,7 @@ def frame_step_phase(model, ck, dev):
     o0 = extract_fn(model, imgs[0], K)
     arrays, n1, n2 = build_map(o0, seq["depths"][0], *seq["poses"][0], cam)
     maps = tuple(torch.from_numpy(x).to(dev) for x in arrays)
-    print(f"frame step: {N_FRAMES} frames rendered at {W}x{H} and a map "
+    print(f"frame step: {n_frames} frames rendered at {W}x{H} and a map "
           f"built in {time.perf_counter() - t0:.2f} s; stage 1 holds {n1} of "
           f"{M1} slots, the local map {n2} of {M2} rows")
 
@@ -1117,6 +1148,26 @@ def frame_step_phase(model, ck, dev):
             2.0 * cam.cx, 2.0 * cam.cy, num_keypoints=K, n_levels=1,
             has_depth=has_depth)
 
+    graph = track_step.RgbdFrameStepGraph(model)
+
+    def replay(i, R0, t0):
+        return graph(imgs[i], depths[i], R0, t0, *maps, cam, BF,
+                     DEPTH_EDGE_REL, INV_SIGMA2, RADIUS_MOTION, RADIUS_LOCAL,
+                     TH_HIGH, RATIO, WIDEN_BELOW, SCALE_FACTOR, 2.0 * cam.cx,
+                     2.0 * cam.cy, num_keypoints=K, n_levels=1,
+                     has_depth=True)
+
+    return seq, cam, imgs, maps, step, replay, graph
+
+
+def frame_step_phase(model, ck, dev):
+    """The online RGB-D frame step on frames 1-5 of a synthetic sequence,
+    counted per frame, against the truth and the plain-kernel path; the
+    monocular configuration; no host sync inside a step; timings."""
+    from xfeatslam_tpu_torch.models.extractor import extract_fn
+    from xfeatslam_tpu_torch.optim import pose_opt, track_step
+
+    seq, cam, imgs, maps, step, replay, graph = frame_step_setup(model, dev)
     Rg0, tg0 = (torch.from_numpy(x).to(dev) for x in seq["poses"][0])
     # ---- frames 1-5, each from the previous estimate, counted; the pose
     # LM's inputs of both stages kept ----
@@ -1162,15 +1213,6 @@ def frame_step_phase(model, ck, dev):
     check(not syncs, "the frame step synchronizes with the host")
 
     # ---- the same frames by CUDA-graph replay, bit for bit ----
-    graph = track_step.RgbdFrameStepGraph(model)
-
-    def replay(i, R0, t0):
-        return graph(imgs[i], depths[i], R0, t0, *maps, cam, BF,
-                     DEPTH_EDGE_REL, INV_SIGMA2, RADIUS_MOTION, RADIUS_LOCAL,
-                     TH_HIGH, RATIO, WIDEN_BELOW, SCALE_FACTOR, 2.0 * cam.cx,
-                     2.0 * cam.cy, num_keypoints=K, n_levels=1,
-                     has_depth=True)
-
     for i, ((R0, t0), res) in enumerate(zip(inputs, results), 1):
         ck.reset_launch_counts()
         got = track_step.fetch(replay(i, R0, t0))
@@ -4165,6 +4207,466 @@ def inertial_mono_stereo_phase(ck, graphs_from=None):
             "imu_stereo_xfeat": xs["counts"]}, rows
 
 
+
+# the training phase: tools/train_xfeat.py's defaults (batch 16, 128x160,
+# lr 2e-3, the contrast teacher) on a pool of 2 scenes x 16 pairs, warm
+# started from the shipped weights; two runs of 4 calls of 16 steps
+TRAIN_BATCH, TRAIN_HW, TRAIN_LR = 16, (128, 160), 2e-3
+TRAIN_SCENES, TRAIN_PAIRS, TRAIN_CALLS, TRAIN_STEPS = 2, 16, 4, 16
+# the trainer's float32 gradients may stray from float64 (on the same ReLU
+# decisions) by 1e-4 of a leaf's max abs, or by this many times the CPU's
+# float32, whichever is more: sums of ~10^4-10^6 terms in another order
+TRAIN_F32_SPREAD = 3.0
+# the eval tool's pairs and the bars of tests/test_xfeat_bf16.py
+EVAL_PAIRS, EVAL_FEATURES, EVAL_CARD_CPU = 8, 600, 0.02
+BF16_NEAR, BF16_COS = 0.85, 0.995
+VIEWER_FRAMES = 8
+
+
+def _loss_grads(model, batch, aug=None, **kw):
+    """``loss_fn``'s loss, aux and gradients in JAX's layout (float64 for
+    a float64 model), under ``train.deterministic()``."""
+    from xfeatslam_tpu_torch.models import weights
+    from xfeatslam_tpu_torch.parallel import train
+
+    model.zero_grad(set_to_none=True)
+    with train.deterministic():
+        loss, aux = train.loss_fn(model, batch, aug=aug, **kw)
+        loss.backward()
+    return (float(loss.detach()), {k: float(v.detach())
+                                   for k, v in aux.items()},
+            weights.grads_to_params(model))
+
+
+def _grad_gap(a, b):
+    """The largest gradient difference of a leaf over that leaf's max abs,
+    and that leaf's name."""
+    from xfeatslam_tpu_torch.models.weights import _node, _paths, _prefix
+
+    worst = (0.0, "")
+    for p in _paths():
+        for k in ("w", "b"):
+            x, y = _node(a, p)[k], _node(b, p)[k]
+            scale = float(np.abs(y).max())
+            if scale > 0:
+                worst = max(worst, (float(np.abs(x - y).max()) / scale,
+                                    f"{_prefix(p)}.{k}"))
+    return worst
+
+
+def training_phase(ck, root, dev):
+    """In-framework training (``parallel/train.py``) on the card: one
+    ``loss_fn`` value and gradient at the tool's defaults (contrast teacher,
+    no augmentation) and once with the peak teacher, loc_weight 0.5 and
+    given augmentation draws, each in float64 card against the CPU port at
+    the CPU tests' bars (loss and aux within 1e-5 relative, each gradient
+    leaf within 1e-4 of its max abs), and the trainer's float32 cuDNN path
+    against the CPU's float64 at the bars its conditioning allows; two runs
+    of ``make_pool_trainer`` from the same seed (4 calls of 16 steps,
+    augmentation on), their losses falling from the first call to the last
+    and their final weights bit-identical; ms per step, device events per
+    step (``torch.profiler``), peak memory and the step's bound; two runs
+    of the same steps without ``deterministic()``; the tool twin's
+    ``main`` for a few steps, its npz loaded back equal to the weights in
+    memory."""
+    from xfeatslam_tpu_torch.models import weights, xfeat
+    from xfeatslam_tpu_torch.parallel import train
+    from xfeatslam_tpu_torch.tools import profile_pipeline, train_xfeat
+
+    npz = os.path.join(REPO, "weights", "xfeat_synthetic.npz")
+    t0 = time.perf_counter()
+    pool = train_xfeat.render_pair_pool(
+        np.random.default_rng(0), n_scenes=TRAIN_SCENES, hw=TRAIN_HW,
+        pairs_per_scene=TRAIN_PAIRS)
+    n_pool = len(pool["img_a"])
+    print(f"train: pool of {n_pool} pairs at {TRAIN_HW[1]}x{TRAIN_HW[0]} "
+          f"rendered in {time.perf_counter() - t0:.2f} s")
+    cpu_pool = {k: torch.from_numpy(v) for k, v in pool.items()}
+    pool_dev = {k: v.to(dev) for k, v in cpu_pool.items()}
+
+    # ---- one loss and gradient, card against CPU ----
+    # Each case is held at the CPU tests' bars in float64, card against
+    # CPU. The trainer's path, float32 through cuDNN, is held against the
+    # CPU's float64 taken with the trainer's own ReLU decisions, at 1e-4 of
+    # a leaf's max abs or TRAIN_F32_SPREAD times the CPU float32's own gap
+    # there: a ReLU whose input is within float32's rounding of zero may
+    # fall either way, and one such unit in millions moves a leaf's
+    # gradient by ~1e-3 of its max abs (C.19). Every ReLU that float64
+    # decides otherwise must be such a unit. The peak teacher's argmax
+    # breaks exact ties of the response, which the card's sums order
+    # otherwise: it is held on its own (every cell equal, or a tie), and
+    # the card's gradients are taken on the CPU's teacher
+    rows = torch.arange(TRAIN_BATCH)
+    gen = torch.Generator().manual_seed(7)
+    draws = tuple(train.draw_aug(gen, (TRAIN_BATCH, *TRAIN_HW, 1))
+                  for _ in range(2))
+    batch_cpu = {k: v[rows] for k, v in cpu_pool.items()}
+    peak_teacher, basic_stack = train.peak_teacher, xfeat._basic_stack
+
+    def on(d, device, dtype):
+        return {k: (v.to(device, dtype) if v.is_floating_point()
+                    else v.to(device)) for k, v in d.items()}
+
+    def relus(record=None, replay=None):
+        # _basic_stack with each ReLU's input kept, or its decision given
+        given = iter(replay or ())
+
+        def stack(x, convs, dt=torch.float32):
+            for conv in convs:
+                y = xfeat._conv(x, conv, dt, out_dt=dt)
+                if replay is not None:
+                    x = y * next(given).to(y.device)
+                else:
+                    record.append(y.detach().cpu())
+                    x = torch.relu(y)
+            return x
+        return stack
+
+    def grads(device, dtype, kw, aug, teacher=None, record=None,
+              stack=None):
+        model = weights.trainable(npz, device=device).to(dtype)
+        a = None if aug is None else tuple(on(d, device, dtype) for d in aug)
+
+        def given(r, **k):
+            if record is not None:
+                record.update(r=r.detach().cpu(),
+                              t=peak_teacher(r, **k).detach().cpu())
+            return (peak_teacher(r, **k) if teacher is None
+                    else teacher.to(r.device, r.dtype))
+
+        train.peak_teacher = given
+        xfeat._basic_stack = stack or basic_stack
+        try:
+            return _loss_grads(model, on(batch_cpu, device, dtype), aug=a,
+                               **kw)
+        finally:
+            train.peak_teacher, xfeat._basic_stack = peak_teacher, basic_stack
+
+    def held(label, lg, ag, gg, lc, ac, gc, bar=1e-4):
+        rel = abs(lg - lc) / abs(lc)
+        aux_rel = max(abs(ag[k] - ac[k]) / max(abs(ac[k]), 1e-7) for k in ac)
+        gap, leaf = _grad_gap(gg, gc)
+        print(f"train loss_fn card vs CPU [{label}]: loss {lg:.7f} / "
+              f"{lc:.7f} (rel {rel:.3e}), aux rel max {aux_rel:.3e} "
+              f"({json.dumps({k: round(v, 6) for k, v in ag.items()})}), "
+              f"gradient max diff over leaf max {gap:.3e} ({leaf}), bar "
+              f"{bar:.3e}")
+        check(rel <= 1e-5 and aux_rel <= 1e-5,
+              f"train: the card's loss disagrees with the CPU's [{label}]")
+        check(gap <= bar,
+              f"train: the card's gradients disagree with the CPU's [{label}]")
+
+    def teachers_held(card, cpu):
+        r_card, r_cpu = card["r"], cpu["r"]
+        differ = (card["t"] - cpu["t"]).abs().amax(-1) > 1e-9
+        cells = xfeat.unfold2d(r_cpu.permute(0, 3, 1, 2), 8).permute(
+            0, 2, 3, 1)
+        pick = xfeat.unfold2d(r_card.permute(0, 3, 1, 2), 8).permute(
+            0, 2, 3, 1).argmax(-1, keepdim=True)
+        top, own = cells.amax(-1), cells.argmax(-1)
+        # the card picked another pixel, a maximum of the CPU's cell too,
+        # to rounding
+        tie = (pick[..., 0] != own) & ((top - cells.gather(-1, pick)[..., 0])
+                                       .abs() <= 1e-12 * (top.abs() + 1e-300))
+        print(f"train peak teacher card vs CPU (float64): response max abs "
+              f"diff {float((r_card - r_cpu).abs().max()):.3e}; "
+              f"{int(differ.sum())} of {differ.numel()} cells differ, "
+              f"{int((differ & tie).sum())} of them at a tie of the "
+              f"response")
+        check(bool((~differ | tie).all()),
+              "train: the card's peak teacher differs off a tie")
+
+    def relus_held(name, ys32, ys64):
+        # each ReLU float64 decides otherwise has its float64 input within
+        # its layer's float32 error
+        flips, worst = 0, 0.0
+        for y32, y64 in zip(ys32, ys64):
+            y64 = y64.to(torch.float64)
+            flip = (y32 > 0) != (y64 > 0)
+            if bool(flip.any()):
+                err = float((y32.double() - y64).abs().max())
+                flips += int(flip.sum())
+                worst = max(worst, float(y64[flip].abs().max()) / err)
+        n = sum(y.numel() for y in ys32)
+        print(f"train ReLUs, the trainer's path against float64 [{name}]: "
+              f"{flips} of {n} decided otherwise, each input within "
+              f"{worst:.3f} of its layer's float32 error")
+        check(worst <= 1.0, f"train: a ReLU flips off its rounding [{name}]")
+
+    f32, f64 = torch.float32, torch.float64
+    for name, kw, aug in (("contrast, no augmentation", {}, None),
+                          ("peak contrast5, loc 0.5, given draws",
+                           dict(kp_teacher="peak", loc_weight=0.5), draws)):
+        cpu_rec, card_rec, ys32, ys64 = {}, {}, [], []
+        l64, a64, g64 = grads("cpu", f64, kw, aug, record=cpu_rec,
+                              stack=relus(ys64))
+        teacher = cpu_rec.get("t")
+        if teacher is not None:
+            grads(dev, f64, kw, aug, record=card_rec)
+            teachers_held(card_rec, cpu_rec)
+            name += ", the CPU's teacher"
+        held(f"{name}, float64", *grads(dev, f64, kw, aug, teacher=teacher),
+             l64, a64, g64)
+        trainer = grads(dev, f32, kw, aug, teacher=teacher,
+                        stack=relus(ys32))
+        relus_held(name, ys32, ys64)
+        # the CPU's float32 against float64 with its own ReLU decisions:
+        # how far float32's sums stray at this size
+        ys32c = []
+        cpu32 = grads("cpu", f32, kw, aug, teacher=teacher,
+                      stack=relus(ys32c))
+        cpu_gap = _grad_gap(cpu32[2], grads(
+            "cpu", f64, kw, aug, teacher=teacher,
+            stack=relus(replay=[y > 0 for y in ys32c]))[2])
+        held(f"{name}, the trainer's float32 against float64 with its ReLU "
+             f"decisions", *trainer,
+             *grads("cpu", f64, kw, aug, teacher=teacher,
+                    stack=relus(replay=[y > 0 for y in ys32])),
+             bar=max(1e-4, TRAIN_F32_SPREAD * cpu_gap[0]))
+        print(f"train loss_fn [{name}]: the CPU's float32 against float64 "
+              f"with its ReLU decisions {cpu_gap[0]:.3e} ({cpu_gap[1]}); "
+              f"against float64's own decisions, the trainer's gradient "
+              f"{_grad_gap(trainer[2], g64)[0]:.3e}, the CPU's float32 "
+              f"{_grad_gap(cpu32[2], g64)[0]:.3e}")
+        del ys32, ys64, ys32c
+
+    # ---- two pool-trainer runs from the same seed ----
+    def free_run(model, opt, pool, idx, g):
+        # make_pool_trainer's steps without train.deterministic()
+        total = 0.0
+        for s in range(idx.shape[0]):
+            batch = {k: v[idx[s]] for k, v in pool.items()}
+            total = total + train._step(model, opt, batch, g, {})[0]
+        return model, opt, total / idx.shape[0], {}
+
+    def train_run(reproducible=True):
+        init_fn, run_fn = train.make_pool_trainer(
+            train.adam(TRAIN_LR), steps_per_call=TRAIN_STEPS, augment=True)
+        run_fn = run_fn if reproducible else free_run
+        model, opt = init_fn(weights.trainable(npz, device=dev))
+        g = torch.Generator(device=dev).manual_seed(1)
+        rng = np.random.default_rng(1)
+        losses, ms = [], []
+        for _ in range(TRAIN_CALLS):
+            idx = torch.from_numpy(rng.integers(
+                0, n_pool, (TRAIN_STEPS, TRAIN_BATCH))).to(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model, opt, loss, aux = run_fn(model, opt, pool_dev, idx, g)
+            end.record()
+            losses.append(float(loss))
+            ms.append(start.elapsed_time(end) / TRAIN_STEPS)
+        return model, losses, ms
+
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    model1, losses1, ms1 = train_run()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - held_mib
+    path_counts(ck, "make_pool_trainer, run 1", {})
+    model2, losses2, ms2 = train_run()
+    same = all(torch.equal(a, b) for a, b in zip(model1.parameters(),
+                                                 model2.parameters()))
+    step_ms = float(np.median(ms1[1:] + ms2[1:]))
+    print(f"train runs: loss per call run 1 "
+          f"{[round(v, 5) for v in losses1]}, run 2 "
+          f"{[round(v, 5) for v in losses2]}; final weights bit-identical: "
+          f"{same}; ms per step (CUDA events, calls 2-{TRAIN_CALLS}) run 1 "
+          f"{[round(v, 3) for v in ms1]}, run 2 {[round(v, 3) for v in ms2]},"
+          f" median {step_ms:.3f}; run 1 wall {wall:.2f} s; peak memory "
+          f"{peak:.1f} MiB over the {held_mib:.1f} MiB held before it")
+    check(losses1[-1] < losses1[0], "train: the loss did not fall")
+    check(all(np.isfinite(losses1)), "train: a non-finite loss")
+    check(same and losses1 == losses2,
+          "train: two runs from the same seed differ")
+    # the same runs without train.deterministic(): what it costs
+    fast = [train_run(reproducible=False) for _ in range(2)]
+    same_fast = all(torch.equal(a, b) for a, b in zip(
+        fast[0][0].parameters(), fast[1][0].parameters()))
+    fast_ms = float(np.median(fast[0][2][1:] + fast[1][2][1:]))
+    print(f"train runs without deterministic(): loss per call "
+          f"{[round(v, 5) for v in fast[0][1]]}, final weights of two runs "
+          f"bit-identical: {same_fast}; ms per step median {fast_ms:.3f} "
+          f"(the trainer's: {step_ms:.3f})")
+
+    # device events of one step, on a copy of the trained weights
+    init_fn, run_fn = train.make_pool_trainer(
+        train.adam(TRAIN_LR), steps_per_call=1, augment=True)
+    m3, opt3 = init_fn(weights.trainable(weights.to_params(model1),
+                                         device=dev))
+    g3 = torch.Generator(device=dev).manual_seed(2)
+    idx1 = torch.arange(TRAIN_BATCH, device=dev)[None]
+    run_fn(m3, opt3, pool_dev, idx1, g3)
+    n_ev, ev_ms, top = stage_events(lambda: run_fn(m3, opt3, pool_dev, idx1,
+                                                   g3))
+    flops = (3 * 2 * TRAIN_BATCH * profile_pipeline.conv_flops(TRAIN_HW)
+             + 3 * 2 * TRAIN_BATCH * (TRAIN_HW[0] * TRAIN_HW[1] // 64) ** 2
+             * 64)
+    b_ms, b_by = bound_ms(0, flops)
+    print(f"train step: {n_ev} device events, {ev_ms:.3f} device ms "
+          f"(profiler), top {top}; float32 ops {flops:.4e} (3x the two "
+          f"views' convs and 3x the InfoNCE product), bound {b_ms:.5f} ms "
+          f"({b_by}) at 67 TFLOP/s")
+
+    # ---- the tool twin's main: a few steps, its npz loaded back ----
+    out = os.path.join(root, "train_tool.npz")
+    t0 = time.perf_counter()
+    tool_model = train_xfeat.main([
+        "--steps", "4", "--batch", "4", "--scenes", "1",
+        "--pairs-per-scene", "4", "--steps-per-call", "2", "--aug",
+        "--out", out, "--device", str(dev)])
+    back = weights.load_npz(out, device=dev)
+    for a, b in zip(tool_model.parameters(), back.parameters()):
+        check(torch.equal(a.detach(), b), "train tool: the npz differs from "
+              "the weights in memory")
+    x = pool_dev["img_a"][:2]
+    with torch.no_grad(), train.deterministic():
+        fa, fb = tool_model(x), back(x)
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(fa, fb))
+    print(f"train tool: main ran 4 steps in {time.perf_counter() - t0:.2f} s;"
+          f" its npz loads with the same weights, forward max abs diff "
+          f"{fwd_err:.3e}")
+    check(fwd_err <= 1e-6, "train tool: the loaded npz's forward differs")
+
+
+def bf16_frame():
+    """tests/test_xfeat_bf16.py's frame: the room at 640x480."""
+    from xfeatslam_tpu_torch.utils.synthetic import RoomScene
+
+    Km = np.array([[517.3, 0, 318.6], [0, 516.5, 255.3], [0, 0, 1]],
+                  np.float32)
+    gray, _ = RoomScene(seed=4).render(Km, np.eye(3, dtype=np.float32),
+                                       np.array([0.0, -0.4, -0.2],
+                                                np.float32), (H, W))
+    return gray
+
+
+def bf16_agreement(o32, o16, top_n=200):
+    """tests/test_xfeat_bf16.py's measure: the share of the ``top_n``
+    strongest float32 keypoints with a bf16 keypoint within 1 px, and the
+    median descriptor cosine at them."""
+    v32, v16 = o32["valid"][0], o16["valid"][0]
+    k32, s32 = o32["kpts"][0][v32], o32["scores"][0][v32]
+    k16 = o16["kpts"][0][v16]
+    top = np.argsort(-s32)[:top_n]
+    d = np.linalg.norm(k32[top, None, :] - k16[None, :, :], axis=-1)
+    agree = d.min(axis=1) <= 1.0
+    cos = (o32["desc"][0][v32][top][agree]
+           * o16["desc"][0][v16][d.argmin(axis=1)[agree]]).sum(-1)
+    return float(agree.mean()), float(np.median(cos))
+
+
+def tools_phase(ck, root, seq, settings, dev):
+    """The rest of ROADMAP item 16 on the card: ``eval_repeatability``'s
+    numbers for the shipped weights, card against CPU, counted; the bf16
+    extraction against float32 at tests/test_xfeat_bf16.py's bars and the
+    batched path's frames per second at batch 32 in float32 and bf16
+    (``profile_pipeline``); an XFeat RGB-D System with ``viewer_dir`` and
+    ``viewer_port`` (its files, /state and a command through urllib, the
+    map export); ``render_tum_dataset`` read back through the TUM reader.
+    Returns the eval run's launch counts."""
+    import urllib.request
+
+    from xfeatslam_tpu_torch.models.extractor import XFeatExtractor
+    from xfeatslam_tpu_torch.slam.system import Sensor, System
+    from xfeatslam_tpu_torch.tools import (eval_repeatability,
+                                           profile_pipeline,
+                                           render_tum_dataset)
+    from xfeatslam_tpu_torch.utils import io as io_utils
+    from xfeatslam_tpu_torch.utils import png
+    from xfeatslam_tpu_torch.utils import synthetic
+
+    # ---- keypoint repeatability, card against CPU ----
+    pairs = eval_repeatability.make_eval_pairs(EVAL_PAIRS)
+    ex_dev = XFeatExtractor(nfeatures=EVAL_FEATURES, device=dev)
+    ex_dev(pairs[0][0])
+    ck.reset_launch_counts()
+    m_dev = eval_repeatability.eval_pairs(ex_dev, pairs)
+    counts = path_counts(ck, f"eval_repeatability, {EVAL_PAIRS} pairs",
+                         {"detect_candidates": EVAL_PAIRS,
+                          "keypoint_desc": EVAL_PAIRS})
+    m_cpu = eval_repeatability.eval_pairs(
+        XFeatExtractor(nfeatures=EVAL_FEATURES, device="cpu"), pairs)
+    print("eval_repeatability (shipped weights, 240x320, 600 features): "
+          f"card {json.dumps({k: round(v, 4) for k, v in m_dev.items()})}, "
+          f"CPU {json.dumps({k: round(v, 4) for k, v in m_cpu.items()})}")
+    for k in m_dev:
+        check(abs(m_dev[k] - m_cpu[k]) <= EVAL_CARD_CPU,
+              f"eval_repeatability: {k} on the card is not the CPU's")
+
+    # ---- bf16 against float32 at 640x480, and the batched path ----
+    img = bf16_frame()
+    ex32 = XFeatExtractor(nfeatures=500, device=dev)
+    ex16 = XFeatExtractor(model=ex32.model, nfeatures=500,
+                          compute_dtype=torch.bfloat16, device=dev)
+    frac, cos = bf16_agreement(ex32(img), ex16(img))
+    print(f"bf16 extraction vs float32 (640x480, 500 features): "
+          f"{frac:.4f} of the top 200 within 1 px (bar {BF16_NEAR}), "
+          f"median cosine {cos:.5f} (bar {BF16_COS})")
+    check(frac >= BF16_NEAR and cos >= BF16_COS,
+          "bf16 extraction misses tests/test_xfeat_bf16.py's bars")
+    for dt in ("float32", "bfloat16"):
+        rows = profile_pipeline.profile(batch=32, dtype=dt, iters=10,
+                                       device=dev)
+        print(f"profile_pipeline batch 32 {dt}: " + json.dumps(
+            {name.strip(): round(t, 4) for name, t, _ in rows})
+            + f" ms; {rows[-1][2]}")
+
+    # ---- the viewer on an XFeat RGB-D System ----
+    viz = os.path.join(root, "viewer")
+    system = System(settings, Sensor.RGBD, enable_loop_closing=False,
+                    viewer_dir=viz, viewer_port=0, device=dev)
+    t0 = time.perf_counter()
+    for i in range(VIEWER_FRAMES):
+        system.track_rgbd(seq["images"][i], seq["depths"][i],
+                          seq["timestamps"][i])
+    wall = time.perf_counter() - t0
+    port = system.viewer_server.port
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/state",
+                                timeout=10) as r:
+        state = json.loads(r.read())
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/cmd?name=view_top", method="POST")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        after = json.loads(r.read())
+    html = system.export_map_html(os.path.join(viz, "map.html"))
+    spans = system.timer.summary()
+    system.shutdown()
+    files = {n: os.path.getsize(os.path.join(viz, n)) for n in (
+        "live_frame.png", "live_map.png", "map3d.json", "session.gif",
+        "map.html")}
+    frame_png = png.read(os.path.join(viz, "live_frame.png"))
+    print(f"viewer: {VIEWER_FRAMES} frames in {wall:.2f} s, files "
+          f"{json.dumps(files)}; /state {json.dumps(state)}; after "
+          f"view_top {after['view']}; live_frame {frame_png.shape}; "
+          f"{os.path.basename(html)} written"
+          + (f"; viewer span {spans.get('viewer')}" if spans else ""))
+    check(state["paused"] is False and after["view"] == "top",
+          "viewer: the panel's state or command failed")
+    check(frame_png.shape == (H + 22, W, 3), "viewer: live_frame.png shape")
+
+    # ---- the dataset writer, read back ----
+    tum = render_tum_dataset.render_tum_dataset(os.path.join(root, "tum15"),
+                                                n_frames=3)
+    ref = synthetic.make_sequence(n_frames=3)
+    rd = io_utils.associate_tum(tum)
+    check(len(rd) == 3, "render_tum_dataset: frames missing")
+    for i in range(3):
+        gray, depth, _ = rd.read(i)
+        check(np.array_equal(gray, ref["images"][i]),
+              "render_tum_dataset: an image reads back changed")
+        want = np.clip(ref["depths"][i] * render_tum_dataset.DEPTH_FACTOR,
+                       0, 65535).astype(np.uint16)
+        check(np.array_equal(depth, want),
+              "render_tum_dataset: a depth image reads back changed")
+    print("render_tum_dataset: 3 frames written by the port's PNG writer, "
+          "read back equal through utils/io.associate_tum")
+    return counts
+
 def run(batch: int, root: str):
     t_run = time.perf_counter()
     print(card_line())
@@ -4461,6 +4963,12 @@ def run(batch: int, root: str):
     # ---- monocular and stereo inertial: the Systems, the new solver calls --
     vi2_launches, _ = inertial_mono_stereo_phase(ck, vi_system)
 
+    # ---- training, the tool twins, bf16 and the viewer (ROADMAP 16) ----
+    t_item = time.perf_counter()
+    training_phase(ck, root, dev)
+    eval_launches = tools_phase(ck, root, seq, run["system"].settings, dev)
+    print(f"item 16 phases: {time.perf_counter() - t_item:.1f} s")
+
     # the ORB kernels: launches on the ORB stereo path (its second run)
     for name in ("orb_fast", "orb_describe"):
         src, rep = KERNEL_SOURCES[name]
@@ -4484,6 +4992,8 @@ def run(batch: int, root: str):
             row["stereo_launches"] = stereo_launches[row["name"]]
         if vi_launches.get(row["name"]):
             row["imu_rgbd_launches"] = vi_launches[row["name"]]
+        if eval_launches.get(row["name"]):
+            row["eval_launches"] = eval_launches[row["name"]]
         for col, counts in (("imu_mono_launches", vi2_launches["imu_mono"]),
                             ("imu_stereo_launches",
                              vi2_launches["imu_stereo"]),

@@ -3,6 +3,7 @@
 
 Usage: python3 extraction_timing.py [--root DIR] [--save FILE.npz] [--tiles]
                                     [--variants]
+       python3 extraction_timing.py --forward [--root DIR]
        python3 extraction_timing.py --compare A.npz B.npz
 (from the repository root, one CUDA card with nvcc)
 
@@ -18,6 +19,10 @@ CUDA-graph replay (``graph_ms``). ``select - detect`` is the descriptor
 stage with its top-k. With ``--save`` it writes the detect candidates at
 batch 1 and 32 and select_keypoints' outputs at batch 32 (sub-pixel) to an
 npz; ``--compare`` prints how two such files differ, array by array.
+With ``--forward`` it times only the network and what runs it: the
+forward at batch 1 and 32 (``cuda_ms`` and ``graph_ms``), the batch-1
+extraction (``extract_fn``, K=1000) and chip_smoke's RGB-D frame step on
+frame 1 of a rendered pair, eager and by ``RgbdFrameStepGraph`` replay.
 With ``--tiles`` (this checkout's detect kernel) it also times detect with
 each tile of TILES forced, and with ``--variants`` detect built from
 text variants of ``csrc/detect_candidates.cu`` (VARIANTS: register caps,
@@ -135,6 +140,30 @@ def compare(a_path, b_path):
               f"{d.max():.3e}")
 
 
+def forward_timing(model, images):
+    """ms of the forward at batch 1 and 32, ``extract_fn`` at batch 1 and
+    the RGB-D frame step (eager, and by graph replay), at 640x480."""
+    import json
+
+    from xfeatslam_tpu_torch.models.extractor import extract_fn
+
+    row = {}
+    for B in (1, 32):
+        x = images[:B].contiguous()
+        row[f"forward_b{B}"] = chip_smoke.cuda_ms(lambda: model(x))
+        row[f"forward_b{B}_graph"] = chip_smoke.graph_ms(lambda: model(x))
+    seq, _, imgs, _, step, replay, _ = chip_smoke.frame_step_setup(
+        model, images.device, n_frames=2)
+    R0, t0 = (torch.from_numpy(a).to(images.device) for a in seq["poses"][0])
+    row["extract_b1"] = chip_smoke.cuda_ms(lambda: extract_fn(model, imgs[1],
+                                                              K))
+    row["frame_step"] = chip_smoke.cuda_ms(lambda: step(1, R0, t0), iters=5,
+                                           warmup=1)
+    row["frame_step_graph"] = chip_smoke.cuda_ms(lambda: replay(1, R0, t0),
+                                                 iters=20, warmup=2)
+    print("forward ms: " + json.dumps({k: round(v, 5) for k, v in row.items()}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE)
@@ -142,6 +171,7 @@ def main() -> int:
     ap.add_argument("--tiles", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--compare", nargs=2)
+    ap.add_argument("--forward", action="store_true")
     args = ap.parse_args()
     if args.compare:
         compare(*args.compare)
@@ -161,6 +191,10 @@ def main() -> int:
     print(f"package from {os.path.dirname(detect.__file__)}")
     _build.build()
     model = weights.load_npz(os.path.join(HERE, "weights", "xfeat_synthetic.npz"))
+    if args.forward:
+        forward_timing(model, torch.from_numpy(chip_smoke.make_images(32))
+                       .cuda())
+        return 0
     images = torch.from_numpy(chip_smoke.make_images(max(BATCHES))).cuda()
     with torch.no_grad():
         feats, logits, heat = model(images)

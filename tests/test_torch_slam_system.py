@@ -157,14 +157,21 @@ def _settings():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(viewer_dir="/nonexistent"), "16"),
+    (dict(viewer_port=0), "16"),
 ])
 def test_unported_configurations_raise(kwargs, item):
+    """Item 16's viewer is ported (tests/test_torch_viewer.py); what still
+    raises is the configuration the JAX System refuses too: a control
+    panel without a viewer directory."""
     kw = dict(enable_loop_closing=False, device="cpu")
     kw.update(kwargs)
     sensor = kw.pop("sensor", tsys.Sensor.RGBD)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match="viewer_port requires viewer_dir"):
         tsys.System(_settings(), sensor, **kw)
+    with pytest.raises(ValueError, match="viewer_port requires viewer_dir"):
+        jsys.System(jset.Settings(cam=jc.Pinhole.from_list(CAMP), **SETTINGS),
+                    jsys.Sensor.RGBD, enable_loop_closing=False, backend="orb",
+                    **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -270,8 +277,9 @@ def test_unported_paths_raise(runs, tmp_path):
                    jser.load_map(str(tmp_path / "m.npz"))):
         for a, b in zip(loaded.keyframes[0].pre_kf, pre):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ts.export_map_html(str(tmp_path / "map.html"))
+    # the map export (item 16) is ported: a standalone page, data inline
+    html = open(ts.export_map_html(str(tmp_path / "map.html"))).read()
+    assert "__EMBEDDED__" not in html and '"n_kf": ' in html
     # the readers and the fisheye settings are ported (tracking through a
     # fisheye camera: tests/test_torch_slam_fisheye.py)
     fisheye = tset.Settings.from_yaml("examples/configs/tum_vi_mono.yaml")

@@ -9,7 +9,8 @@ same ``weights/xfeat_synthetic.npz``:
    "fine_matcher": [{"w": (in, out), "b": (out,)}, ...]}
 
 ``from_jax_params`` turns that pytree into an ``XFeat`` module (HWIO ->
-OIHW, (in,out) -> (out,in)) on a device; ``to_params`` goes back.
+OIHW, (in,out) -> (out,in)) on a device; ``to_params`` goes back, and
+``grads_to_params`` maps a trainable model's gradients the same way.
 
 Folding a reference BasicLayer y = relu(BN(conv(x))) with BN affine=False:
   w' = w * s,  b' = -mean * s,  s = 1/sqrt(var + eps)
@@ -22,7 +23,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from .xfeat import _BASIC_STACKS, _FINAL_CONVS, _FINE_MATCHER, BN_EPS, XFeat
+from .xfeat import (_BASIC_STACKS, _FINAL_CONVS, _FINE_MATCHER, BN_EPS, XFeat,
+                    init_params)
 
 # torch Sequential indices of the plain convs that end each stack
 _FINAL_TORCH_KEYS = {
@@ -103,11 +105,8 @@ def _node(tree, path):
     return node if i is None else node[i]
 
 
-def from_jax_params(params_np, device=None) -> XFeat:
-    """Build the port's ``XFeat`` from the JAX package's parameter pytree
-    (any arrays numpy can read, numpy or jax). Runs on CUDA unless
-    ``device`` says otherwise."""
-    dev = resolve_device(device)
+def _build(params_np, dev) -> XFeat:
+    """An ``XFeat`` on ``dev`` holding the JAX-layout pytree's values."""
     model = XFeat()
     with torch.no_grad():
         for path in _paths():
@@ -118,8 +117,28 @@ def from_jax_params(params_np, device=None) -> XFeat:
             layer = _node(model, path)
             layer.weight.copy_(torch.tensor(w))
             layer.bias.copy_(torch.tensor(np.asarray(node["b"], np.float32)))
+    return model.to(dev, memory_format=torch.channels_last)
+
+
+def from_jax_params(params_np, device=None) -> XFeat:
+    """Build the port's ``XFeat`` from the JAX package's parameter pytree
+    (any arrays numpy can read, numpy or jax), frozen for inference. Runs
+    on CUDA unless ``device`` says otherwise."""
+    model = _build(params_np, resolve_device(device))
     model.requires_grad_(False)
-    return model.eval().to(dev, memory_format=torch.channels_last)
+    return model.eval()
+
+
+def trainable(source=0, device=None) -> XFeat:
+    """The same ``XFeat`` with trainable parameters, for
+    ``parallel/train.py``: ``source`` is a JAX-layout parameter pytree, the
+    path of an npz checkpoint, or the seed of the port's ``init_params``.
+    Runs on CUDA unless ``device`` says otherwise."""
+    if isinstance(source, str):
+        source = load_npz_params(source)
+    elif isinstance(source, (int, np.integer)):
+        source = init_params(int(source))
+    return _build(source, resolve_device(device)).train()
 
 
 def _prefix(path):
@@ -146,6 +165,22 @@ def to_params(model: XFeat) -> dict:
         w = np.transpose(w, (2, 3, 1, 0)) if w.ndim == 4 else w.T
         return {"w": np.ascontiguousarray(w),
                 "b": layer.bias.detach().float().cpu().numpy()}
+
+    return _tree((path, node(_node(model, path))) for path in _paths())
+
+
+def grads_to_params(model: XFeat) -> dict:
+    """The ``.grad`` of every parameter as a numpy pytree in JAX's layout
+    (HWIO convs, (in, out) linears), zeros where no gradient reached a
+    parameter (as ``jax.grad`` gives for an unused one)."""
+    def arr(p):
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        g = g.detach().float().cpu().numpy()
+        return np.transpose(g, (2, 3, 1, 0)) if g.ndim == 4 else g.T
+
+    def node(layer):
+        return {"w": np.ascontiguousarray(arr(layer.weight)),
+                "b": arr(layer.bias)}
 
     return _tree((path, node(_node(model, path))) for path in _paths())
 

@@ -55,13 +55,14 @@ _FINE_MATCHER = [(128, 512), (512, 512), (512, 512), (512, 512), (512, 64)]
 def _conv(x, conv: nn.Conv2d, dt=torch.float32, out_dt=torch.float32):
     """Conv with the JAX package's ``compute_dtype`` semantics: input and
     weights cast to ``dt``, bias added in float32, result stored as
-    ``out_dt``. Under float32 this is one plain conv. Under a narrower
-    ``dt`` PyTorch accumulates in float32 inside the conv but returns ``dt``,
-    so the sum is rounded to ``dt`` once before the float32 bias add (the
-    JAX package rounds after it)."""
+    ``out_dt``. Under float32 this is one plain conv in the parameters'
+    dtype (float32, or float64 for a model made ``.double()`` as a
+    reference). Under a narrower ``dt`` PyTorch accumulates in float32
+    inside the conv but returns ``dt``, so the sum is rounded to ``dt`` once
+    before the float32 bias add (the JAX package rounds after it)."""
     if dt == torch.float32:
-        y = F.conv2d(x.float(), conv.weight, conv.bias, conv.stride,
-                     conv.padding)
+        y = F.conv2d(x.to(conv.weight.dtype), conv.weight, conv.bias,
+                     conv.stride, conv.padding)
         return y if out_dt == torch.float32 else y.to(out_dt)
     y = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride,
                  conv.padding)
@@ -88,10 +89,49 @@ def unfold2d(x, ws: int = 8):
     return F.pixel_unshuffle(x, ws)
 
 
+# upsampling matrices, keyed by (n_in, n_out, device, dtype)
+_UPSAMPLE: dict = {}
+
+
+def _upsample_matrix(n_in: int, n_out: int, like):
+    """The (n_out, n_in) weights of ``F.interpolate(mode="bilinear",
+    align_corners=False)`` along one axis upsampled by an integer factor:
+    output j samples at (j + 0.5) n_in / n_out - 0.5, clamped to the first
+    sample, from its two neighbours, the last sample repeated. Every weight
+    is a multiple of 1/8 for factors 2 and 4, exact in bfloat16 too. Cached
+    on ``like``'s device in its dtype (the first call, outside any capture,
+    makes them)."""
+    key = (n_in, n_out, str(like.device), like.dtype)
+    m = _UPSAMPLE.get(key)
+    if m is None:
+        j = torch.arange(n_out, dtype=torch.float64)
+        src = ((j + 0.5) * (n_in / n_out) - 0.5).clamp(min=0.0)
+        i0 = src.floor().long()
+        lam = src - i0
+        w = torch.zeros(n_out, n_in, dtype=torch.float64)
+        jj = j.long()
+        w.index_put_((jj, i0), 1.0 - lam, accumulate=True)
+        w.index_put_((jj, (i0 + 1).clamp(max=n_in - 1)), lam,
+                     accumulate=True)
+        m = _UPSAMPLE[key] = w.to(like.device, like.dtype)
+    return m
+
+
 def _resize_bilinear(x, out_hw):
-    """Bilinear upsample with half-pixel centers (align_corners=False)."""
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                         align_corners=False)
+    """Bilinear upsample of NCHW ``x`` with half-pixel centers
+    (align_corners=False) by integer factors: two products with fixed
+    interpolation matrices on the channels-last layout, W then H, one
+    batched GEMM each (within 5e-7 of ``F.interpolate`` on unit-variance
+    inputs; the products follow ``torch.backends.cuda.matmul.allow_tf32``).
+    Its backward is two more products, with no scatter, so a training step
+    gives the same bits on every run (the CUDA backward of
+    ``F.interpolate`` adds with atomics). Returns a channels-last view."""
+    (B, C, h, w), (oh, ow) = x.shape, tuple(out_hw)
+    if oh % h or ow % w:
+        raise ValueError(f"upsample {h}x{w} -> {oh}x{ow}: integer factors")
+    y = torch.matmul(_upsample_matrix(w, ow, x), x.permute(0, 2, 3, 1))
+    y = torch.matmul(_upsample_matrix(h, oh, x), y.reshape(B, h, ow * C))
+    return y.view(B, oh, ow, C).permute(0, 3, 1, 2)
 
 
 class XFeat(nn.Module):
@@ -119,7 +159,9 @@ class XFeat(nn.Module):
         Returns feats (B,H8,W8,64), logits (B,H8,W8,65), heatmap (B,H8,W8,1).
         """
         dt = compute_dtype
-        x = x.float().mean(dim=-1, keepdim=True).permute(0, 3, 1, 2)
+        # float32, or float64 for a model made ``.double()`` as a reference
+        x = x.to(self.block1[0].weight.dtype)
+        x = x.mean(dim=-1, keepdim=True).permute(0, 3, 1, 2)
         x = instance_norm(x).contiguous(memory_format=torch.channels_last)
 
         x1 = _basic_stack(x, self.block1, dt)
@@ -138,7 +180,8 @@ class XFeat(nn.Module):
         h = _basic_stack(feats, self.heatmap_head, dt)
         heatmap = torch.sigmoid(_conv(h, self.heatmap_final, dt))
 
-        k = _basic_stack(unfold2d(x.to(dt), 8), self.keypoint_head, dt)
+        k = _basic_stack(unfold2d(x if dt == torch.float32 else x.to(dt), 8),
+                         self.keypoint_head, dt)
         logits = _conv(k, self.keypoint_final, dt)
 
         def nhwc(t):

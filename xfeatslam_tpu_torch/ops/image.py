@@ -183,6 +183,25 @@ def sample_bilinear(img, coords_xy, norm_hw):
             + _gather_rows(img, y0i + 1, x0i + 1) * wx * wy)
 
 
+def sample_bilinear_px(img, coords_xy):
+    """Sparse bilinear sampling at exact pixel coordinates: the value at
+    integer (x, y) is img[y, x], zero out of bounds. ``sample_bilinear``
+    follows the reference's grid_sample chain, which moves positions by up
+    to half a pixel near the borders; geometric lookups (the training
+    loss's dense correspondence at a predicted peak) take this one."""
+    px, py = coords_xy[..., 0], coords_xy[..., 1]
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    wx = (px - x0)[..., None]
+    wy = (py - y0)[..., None]
+    x0i = x0.long()
+    y0i = y0.long()
+    return (_gather_rows(img, y0i, x0i) * (1 - wx) * (1 - wy)
+            + _gather_rows(img, y0i, x0i + 1) * wx * (1 - wy)
+            + _gather_rows(img, y0i + 1, x0i) * (1 - wx) * wy
+            + _gather_rows(img, y0i + 1, x0i + 1) * wx * wy)
+
+
 def sample_nearest(img, coords_xy, norm_hw):
     """Sparse nearest sampling with zero padding (grid_sample parity)."""
     _, Hs, Ws, _ = img.shape

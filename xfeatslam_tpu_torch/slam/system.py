@@ -22,9 +22,10 @@ mapping has initialized the IMU (rotating and rescaling the map, which the
 System hands on to tracking), solves visual-inertial poses. A monocular
 inertial map initializes with a free scale and refines it while its chain
 is young; a map weld with an IMU-initialized map runs the welding inertial
-BA (``LocalMapping.merge_inertial_ba``) in place of the global BA. Not
-ported yet, each raising ``NotImplementedError`` with its ROADMAP item: the
-viewer and map export (item 16).
+BA (``LocalMapping.merge_inertial_ba``) in place of the global BA.
+``viewer_dir`` and ``viewer_port`` follow the session with the live viewer
+and its control panel (``utils/viewer.py``); ``export_map_html`` writes the
+interactive 3D map (``utils/map3d.py``).
 """
 
 from __future__ import annotations
@@ -76,13 +77,21 @@ class System:
         reads the ``USE_ORB`` environment variable, as the JAX package does.
         enable_loop_closing (with mapping) builds LoopClosing, as in the
         JAX package. device: where the tensors live, CUDA unless given.
-        An inertial sensor needs the settings' IMU section."""
+        An inertial sensor needs the settings' IMU section.
+
+        viewer_dir: a ``LiveViewer`` follows the session there
+        (live_frame.png, live_map.png and map3d.json swapped in atomically,
+        session.gif at shutdown; the reference's bUseViewer). viewer_port:
+        also serve the control panel on http://127.0.0.1:<port>/ (0 picks a
+        free port, read back from ``viewer_server.port``): pause and
+        step-by-step, follow camera, top or side view, localization mode,
+        reset, stop. Requires viewer_dir."""
         if backend is None:
             backend = "orb" if os.environ.get("USE_ORB") else "xfeat"
         if backend not in ("xfeat", "orb"):
             raise ValueError(f"backend {backend!r}: 'xfeat' or 'orb'")
-        if viewer_dir is not None or viewer_port is not None:
-            raise NotImplementedError("the viewer waits for ROADMAP item 16")
+        if viewer_port is not None and viewer_dir is None:
+            raise ValueError("viewer_port requires viewer_dir")
         # the inertial calibration, required by the IMU_* sensors
         self.imu_calib = settings.imu if sensor in _INERTIAL else None
         if sensor in _INERTIAL and self.imu_calib is None:
@@ -97,6 +106,15 @@ class System:
         self._last_big_change_idx = 0
         self.settings = settings
         self.sensor = sensor
+        self.viewer = self.viewer_controls = self.viewer_server = None
+        if viewer_dir is not None:
+            from ..utils.viewer import LiveViewer, ViewerControls, ViewerServer
+
+            self.viewer = LiveViewer(viewer_dir)
+            if viewer_port is not None:
+                self.viewer_controls = ViewerControls()
+                self.viewer_server = ViewerServer(
+                    viewer_dir, self.viewer_controls, port=viewer_port)
         if backend == "orb":
             # the extractor's own pyramid defaults, as the JAX package's
             # System builds it
@@ -172,31 +190,71 @@ class System:
         """Returns (state, (R,t) world->camera or None). imu: the (acc (3,),
         gyro (3,), t) samples since the previous frame (System::TrackRGBD's
         vImuMeas)."""
+        self._apply_viewer_controls()
         with self.timer.span("track"):
             state, pose = self.tracking.grab_rgbd(gray, depth_raw, timestamp,
                                                   imu=imu)
         with self.timer.span("backend"):
             self._run_backend()
+        self._update_viewer(gray, state)
         return state, pose
 
     def track_stereo(self, gray_l: np.ndarray, gray_r: np.ndarray,
                      timestamp: float, imu=None):
         """A rectified stereo pair (System::TrackStereo). Returns (state,
         (R,t) world->camera or None)."""
+        self._apply_viewer_controls()
         with self.timer.span("track"):
             state, pose = self.tracking.grab_stereo(gray_l, gray_r,
                                                     timestamp, imu=imu)
         with self.timer.span("backend"):
             self._run_backend()
+        self._update_viewer(gray_l, state)
         return state, pose
 
     def track_monocular(self, gray: np.ndarray, timestamp: float, imu=None):
         """Returns (state, (R,t) world->camera or None)."""
+        self._apply_viewer_controls()
         with self.timer.span("track"):
             state, pose = self.tracking.grab_mono(gray, timestamp, imu=imu)
         with self.timer.span("backend"):
             self._run_backend()
+        self._update_viewer(gray, state)
         return state, pose
+
+    def _apply_viewer_controls(self):
+        """Honour the control panel before a frame: block while paused (a
+        step releases one frame), then apply reset and localization
+        mode."""
+        c = self.viewer_controls
+        if c is None or c.stopped:
+            return
+        c.gate()
+        if c.consume_reset():
+            self.reset()
+        if c.localization != self.tracking.only_tracking:
+            if c.localization:
+                self.activate_localization_mode()
+            else:
+                self.deactivate_localization_mode()
+
+    def _update_viewer(self, gray, state):
+        if self.viewer is None or self.tracking.last_frame is None:
+            return
+        c = self.viewer_controls
+        follow_center, view = None, "both"
+        if c is not None:
+            view = c.view
+            lf = self.tracking.last_frame
+            if c.follow and lf.R is not None:
+                follow_center = -lf.R.T @ lf.t
+        with self.timer.span("viewer"):
+            self.viewer.update(gray, self.tracking.last_frame, self.map,
+                               trajectory=self.tracking.trajectory,
+                               state_text=f"{state.name} | "
+                               f"{self.map.num_keyframes()} KFs | "
+                               f"{self.map.num_points()} points",
+                               follow_center=follow_center, view=view)
 
     def _sync_active_map(self):
         """Tracking may have switched to a new map (Atlas): re-point the
@@ -359,8 +417,18 @@ class System:
         return sorted(m.keyframes.values(), key=lambda k: k.timestamp)
 
     def export_map_html(self, path: str, max_points: int = 60000) -> str:
-        raise NotImplementedError(
-            "the interactive map export waits for ROADMAP item 16")
+        """A standalone interactive 3D map file (WebGL orbit, pan and zoom
+        over the points, keyframe frusta, covisibility graph and
+        trajectory): the offline form of the map the viewer serves at
+        /map3d. Returns ``path``."""
+        from ..utils import map3d
+
+        payload = map3d.map_payload(
+            self.map, trajectory=self.tracking.trajectory,
+            max_points=max_points,
+            title=f"{self.map.num_keyframes()} KFs, "
+                  f"{self.map.num_points()} points")
+        return map3d.export_html(payload, path)
 
     def save_atlas(self, path: str):
         """Checkpoint the whole atlas (System::SaveAtlas), in the JAX
@@ -515,6 +583,10 @@ class System:
         self._is_shutdown = True
         if self.loop_closing is not None:
             self.loop_closing.flush()  # finish an in-flight budgeted GBA
+        if self.viewer_server is not None:
+            self.viewer_server.close()
+        if self.viewer is not None:
+            self.viewer.close()
         return {
             "keyframes": self.map.num_keyframes(),
             "map_points": self.map.num_points(),

@@ -1,4 +1,5 @@
-"""A PNG decoder in numpy and ``zlib``, for hosts without ``cv2``.
+"""A PNG decoder and writer in numpy and ``zlib``, for hosts without
+``cv2``.
 
 Reads the images of the datasets the examples take: 8-bit gray, 8-bit RGB
 and RGBA, and 16-bit gray (TUM depth), non-interlaced, with any of the
@@ -11,6 +12,9 @@ through libpng: RGB to gray with libpng's fixed-point weights
 it is; alpha dropped; 16 bits to 8 by the high byte. ``read`` returns the
 samples as stored (RGB order, uint16 for 16-bit), as
 ``cv2.IMREAD_UNCHANGED`` does for gray images.
+
+``write`` stores 8-bit gray or RGB and 16-bit gray (the TUM depth format),
+every row unfiltered, the image data in one IDAT chunk.
 """
 
 from __future__ import annotations
@@ -135,3 +139,40 @@ def to_gray(px: np.ndarray) -> np.ndarray:
 def read_gray(path: str) -> np.ndarray:
     """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` for a PNG file."""
     return to_gray(read(path))
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode(px: np.ndarray) -> bytes:
+    """The PNG file of ``px``: (H, W) uint8 or uint16 gray, or (H, W, 3)
+    uint8 RGB."""
+    px = np.asarray(px)
+    if px.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PNG samples must be uint8 or uint16, not {px.dtype}")
+    if px.ndim == 3 and px.shape[2] == 3 and px.dtype == np.uint8:
+        color = 2
+    elif px.ndim == 2:
+        color = 0
+    else:
+        raise ValueError(f"PNG image of shape {px.shape} and {px.dtype}: "
+                         "gray (H, W) or 8-bit RGB (H, W, 3)")
+    h, w = px.shape[:2]
+    rows = px.astype(">u2") if px.dtype == np.uint16 else px
+    rows = np.ascontiguousarray(rows).view(np.uint8).reshape(h, -1)
+    # filter type 0 (None) on every row
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * px.dtype.itemsize, color, 0, 0,
+                       0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write(path: str, px: np.ndarray) -> None:
+    """Write ``px`` (see ``encode``) as a PNG file at ``path``."""
+    data = encode(px)
+    with open(path, "wb") as f:
+        f.write(data)
