@@ -28,7 +28,12 @@ Phases, each fatal on failure:
      P=31 and P=1, M=4096, N=1 and M=1, each with its launch's CTA count;
      one call of each matcher wrapper under
      ``torch.cuda.set_sync_debug_mode("error")``; the whole path against the
-     plain path on the same card;
+     plain path on the same card; the sharded pipeline on a mesh of one
+     rank (``parallel/mesh.make_mesh(1)``, no process group):
+     ``make_sharded_pipeline`` in float32 and bf16, each bit for bit
+     against ``extract_batch`` + ``match_consecutive`` in its dtype and
+     counted (one launch of each of the path's kernels), the CUDA device
+     count and the phase's seconds;
   5. ``XFeatExtractor()`` on one 500x700 uint8 frame (resize, sub-pixel
      selection, coordinate rescale);
   6. the single-pair matcher path, counted: ``match_consecutive(fused=False)``
@@ -213,7 +218,9 @@ Phases, each fatal on failure:
      the step's bound; two runs of the trainer's steps without
      ``train.deterministic()`` (ms per step, whether they agree); the train
      tool twin's
-     ``main`` for 4 steps, its npz loaded back equal; ``eval_repeatability``
+     ``main`` for 4 steps, its npz loaded back equal; one call of
+     ``make_pool_trainer(mesh=make_mesh(1))`` bit for bit against the
+     trainer without a mesh; ``eval_repeatability``
      on 8 pairs, card against CPU within 0.02, counted (one
      ``detect_candidates`` and one ``keypoint_desc`` a pair); bf16
      extraction against float32 at tests/test_xfeat_bf16.py's bars and the
@@ -233,6 +240,7 @@ ORB kernels, whose ``launches`` are the ORB stereo path's;
 on the ORB IMU_MONOCULAR path's, ``imu_stereo_launches`` on the ORB
 IMU_STEREO path's (its run 2) and ``imu_stereo_xfeat_launches`` on the
 XFeat IMU_STEREO path's, ``eval_launches`` on ``eval_repeatability``'s,
+``mesh_launches`` on the float32 sharded pipeline's on a mesh of one,
 each from its own run with the counts reset just before it), the script's
 time, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -870,6 +878,39 @@ def compare_top2(ck, a, b, vb, label, exact=False):
           f"top2 [{label}]: best columns disagree")
     check(err <= 1e-6, f"top2 [{label}]: similarities differ by more than 1e-6")
     return {"max_abs_err": err}
+
+
+def mesh_pipeline_phase(ck, batched, model, images):
+    """The sharded pipeline on a mesh of one rank (world size 1, no process
+    group, the card): ``make_sharded_pipeline`` in float32 and bf16, each
+    counted, against ``extract_batch`` + ``match_consecutive`` in its dtype
+    on the same frames, bit for bit. Returns the float32 call's launch
+    counts."""
+    from xfeatslam_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    check(mesh.size == 1 and mesh.device.type == "cuda",
+          f"mesh: make_mesh(1) gave {mesh}")
+    counts = {}
+    for dt in (torch.float32, torch.bfloat16):
+        o = batched.extract_batch(model, images, K, dt)
+        r = batched.match_consecutive(o["desc"], o["valid"])
+        want = (o["kpts"], o["desc"], o["valid"], r.idx, r.mask)
+        pipe = batched.make_sharded_pipeline(mesh, model, num_keypoints=K,
+                                             compute_dtype=dt)
+        ck.reset_launch_counts()
+        got = pipe(images)
+        counts[dt] = path_counts(
+            ck, f"make_sharded_pipeline, mesh of one, {dt}", BATCHED_KERNELS)
+        same = [torch.equal(a, b) for a, b in zip(got, want)]
+        print(f"mesh of one, {dt}: kpts, desc, valid, match_idx, "
+              f"match_mask bit-identical to the unsharded path: {same}")
+        check(all(same), f"mesh: the sharded pipeline ({dt}) differs from "
+              f"the unsharded path")
+    print(f"mesh phase: {torch.cuda.device_count()} CUDA device(s), {mesh}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    return counts[torch.float32]
 
 
 def single_pair_phase(ck, matching, batched, desc, valid, res_batched, dev):
@@ -4532,6 +4573,31 @@ def training_phase(ck, root, dev):
           f"{fwd_err:.3e}")
     check(fwd_err <= 1e-6, "train tool: the loaded npz's forward differs")
 
+    # ---- a mesh of one rank: the trainer as without one, bit for bit ----
+    from xfeatslam_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    runs = []
+    for mesh in (None, make_mesh(1)):
+        init_fn, run_fn = train.make_pool_trainer(
+            train.adam(TRAIN_LR), steps_per_call=TRAIN_STEPS, augment=True,
+            mesh=mesh)
+        model, opt = init_fn(weights.trainable(npz, device=dev))
+        idx = torch.from_numpy(np.random.default_rng(1).integers(
+            0, n_pool, (TRAIN_STEPS, TRAIN_BATCH))).to(dev)
+        model, opt, loss, _ = run_fn(model, opt, pool_dev, idx,
+                                     torch.Generator(device=dev).manual_seed(1))
+        runs.append((model, float(loss)))
+    same = all(torch.equal(a, b) for a, b in zip(runs[0][0].parameters(),
+                                                 runs[1][0].parameters()))
+    print(f"train on a mesh of one ({torch.cuda.device_count()} CUDA "
+          f"device(s)): one call of {TRAIN_STEPS} steps, mean loss "
+          f"{runs[1][1]!r} (without a mesh {runs[0][1]!r}), weights "
+          f"bit-identical: {same}; {time.perf_counter() - t0:.2f} s")
+    check(same and runs[0][1] == runs[1][1],
+          "train: the trainer on a mesh of one differs from the trainer "
+          "without a mesh")
+
 
 def bf16_frame():
     """tests/test_xfeat_bf16.py's frame: the room at 640x480."""
@@ -4778,6 +4844,9 @@ def run(batch: int, root: str):
     check(kj >= 0.999, "keypoint sets differ from the plain path")
     check(pj >= 0.995, "matched pairs differ from the plain path")
 
+    # ---- the sharded pipeline on a mesh of one rank ----
+    mesh_launches = mesh_pipeline_phase(ck, batched, model, images)
+
     # ---- the SLAM extractor facade on a frame that needs resizing ----
     frame = (make_images(1)[0, :, :, 0] * 255).astype(np.uint8)
     frame = np.pad(frame, ((10, 10), (30, 30)), mode="reflect")[:500, :700]
@@ -4994,6 +5063,8 @@ def run(batch: int, root: str):
             row["imu_rgbd_launches"] = vi_launches[row["name"]]
         if eval_launches.get(row["name"]):
             row["eval_launches"] = eval_launches[row["name"]]
+        if row["name"] in BATCHED_KERNELS:
+            row["mesh_launches"] = mesh_launches[row["name"]]
         for col, counts in (("imu_mono_launches", vi2_launches["imu_mono"]),
                             ("imu_stereo_launches",
                              vi2_launches["imu_stereo"]),

@@ -10,7 +10,10 @@ same ``weights/xfeat_synthetic.npz``:
 
 ``from_jax_params`` turns that pytree into an ``XFeat`` module (HWIO ->
 OIHW, (in,out) -> (out,in)) on a device; ``to_params`` goes back, and
-``grads_to_params`` maps a trainable model's gradients the same way.
+``grads_to_params`` maps a trainable model's gradients the same way. On a
+model partitioned over a mesh's "model" axis (``parallel/train.shard_model``)
+both gather each split layer's parts back into the whole pytree: they are
+collectives, which every rank of the model axis calls.
 
 Folding a reference BasicLayer y = relu(BN(conv(x))) with BN affine=False:
   w' = w * s,  b' = -mean * s,  s = 1/sqrt(var + eps)
@@ -158,13 +161,20 @@ def _tree(nodes):
     return params
 
 
+def _whole(layer, t):
+    """``t``, a parameter of ``layer`` or its gradient, whole: gathered
+    over the mesh's "model" axis where the layer is split."""
+    split = getattr(layer, "model_split", None)
+    return t.detach() if split is None else split.gather(t)
+
+
 def to_params(model: XFeat) -> dict:
     """The inverse of ``from_jax_params``: numpy pytree in JAX layout."""
     def node(layer):
-        w = layer.weight.detach().float().cpu().numpy()
+        w = _whole(layer, layer.weight).float().cpu().numpy()
         w = np.transpose(w, (2, 3, 1, 0)) if w.ndim == 4 else w.T
         return {"w": np.ascontiguousarray(w),
-                "b": layer.bias.detach().float().cpu().numpy()}
+                "b": _whole(layer, layer.bias).float().cpu().numpy()}
 
     return _tree((path, node(_node(model, path))) for path in _paths())
 
@@ -173,21 +183,22 @@ def grads_to_params(model: XFeat) -> dict:
     """The ``.grad`` of every parameter as a numpy pytree in JAX's layout
     (HWIO convs, (in, out) linears), zeros where no gradient reached a
     parameter (as ``jax.grad`` gives for an unused one)."""
-    def arr(p):
+    def arr(layer, p):
         g = torch.zeros_like(p) if p.grad is None else p.grad
-        g = g.detach().float().cpu().numpy()
+        g = _whole(layer, g).float().cpu().numpy()
         return np.transpose(g, (2, 3, 1, 0)) if g.ndim == 4 else g.T
 
     def node(layer):
-        return {"w": np.ascontiguousarray(arr(layer.weight)),
-                "b": arr(layer.bias)}
+        return {"w": np.ascontiguousarray(arr(layer, layer.weight)),
+                "b": arr(layer, layer.bias)}
 
     return _tree((path, node(_node(model, path))) for path in _paths())
 
 
-def save_npz(path: str, model: XFeat) -> None:
-    """Write the model in the JAX package's npz layout (``name.i.w``)."""
-    params = to_params(model)
+def save_npz(path: str, model) -> None:
+    """Write the model, or its ``to_params`` pytree, in the JAX package's
+    npz layout (``name.i.w``)."""
+    params = model if isinstance(model, dict) else to_params(model)
     flat = {}
     for p in _paths():
         node = _node(params, p)

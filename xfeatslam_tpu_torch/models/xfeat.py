@@ -59,14 +59,23 @@ def _conv(x, conv: nn.Conv2d, dt=torch.float32, out_dt=torch.float32):
     dtype (float32, or float64 for a model made ``.double()`` as a
     reference). Under a narrower ``dt`` PyTorch accumulates in float32
     inside the conv but returns ``dt``, so the sum is rounded to ``dt`` once
-    before the float32 bias add (the JAX package rounds after it)."""
+    before the float32 bias add (the JAX package rounds after it).
+
+    A conv partitioned over a mesh's "model" axis (``parallel/train.py``)
+    holds part of its output channels and a ``model_split``
+    (``parallel/mesh.ModelSplit``) that gathers the rest."""
+    split = getattr(conv, "model_split", None)
+    if split is not None:
+        x = split.enter(x)
     if dt == torch.float32:
         y = F.conv2d(x.to(conv.weight.dtype), conv.weight, conv.bias,
                      conv.stride, conv.padding)
-        return y if out_dt == torch.float32 else y.to(out_dt)
-    y = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride,
-                 conv.padding)
-    return (y.float() + conv.bias.float()[None, :, None, None]).to(out_dt)
+        y = y if out_dt == torch.float32 else y.to(out_dt)
+    else:
+        y = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride,
+                     conv.padding)
+        y = (y.float() + conv.bias.float()[None, :, None, None]).to(out_dt)
+    return y if split is None else split.leave(y)
 
 
 def _basic_stack(x, convs, dt=torch.float32):
@@ -195,7 +204,8 @@ def fine_matcher_mlp(model: XFeat, x):
     h = x
     n = len(model.fine_matcher)
     for i, lin in enumerate(model.fine_matcher):
-        h = lin(h)
+        split = getattr(lin, "model_split", None)  # as in ``_conv``
+        h = lin(h) if split is None else split.leave(lin(split.enter(h)))
         if i < n - 1:
             h = torch.relu(h)
     return h

@@ -1,11 +1,11 @@
 """Batched offline pipeline: extract features for a batch of frames, then
 mutual-NN match every consecutive pair.
 
-Counterpart of ``extract_batch`` and ``match_consecutive`` in
-``xfeatslam_tpu/parallel/batched.py`` (BASELINE config 4). On CUDA tensors
-both go through the CUDA kernels of ``ops/cuda_kernels.py``; on CPU
-tensors through their plain versions. The multi-device sharded pipeline is
-not ported yet.
+Counterpart of ``xfeatslam_tpu/parallel/batched.py`` (BASELINE config 4):
+``extract_batch``, ``match_consecutive`` and the pipeline sharded over a
+mesh's data axis (``make_sharded_pipeline``). On CUDA tensors they go
+through the CUDA kernels of ``ops/cuda_kernels.py``; on CPU tensors
+through their plain versions.
 """
 
 from __future__ import annotations
@@ -52,3 +52,38 @@ def match_consecutive(desc, valid, max_dist=matching.TH_LOW * 6, ratio=0.95,
     ok = ((best <= max_dist) & (best <= ratio * second) & mutual
           & valid[:-1])
     return matching.MatchResult(torch.where(ok, idx, -1), best, ok)
+
+
+def make_sharded_pipeline(mesh, model, num_keypoints: int = 1000,
+                          compute_dtype=torch.bfloat16):
+    """Returns ``pipeline(images)``: (B,H,W,C) images, the whole batch on
+    every rank, -> (kpts, desc, valid, match_idx, match_mask) of the whole
+    batch on every rank, with the frames split over the mesh's "data" axis
+    and ``model`` whole on every rank. B must divide by the data axis.
+
+    Each data rank extracts its frames and matches its pairs, the pair
+    across its boundary with the next rank's first frame included (taken
+    from the gathered descriptors); a mesh of one rank runs
+    ``extract_batch`` and ``match_consecutive`` as they are."""
+
+    def pipeline(images):
+        if mesh.size == 1:
+            out = extract_batch(model, images, num_keypoints, compute_dtype)
+            res = match_consecutive(out["desc"], out["valid"])
+            return out["kpts"], out["desc"], out["valid"], res.idx, res.mask
+        B = images.shape[0]
+        out = extract_batch(model, mesh.shard_batch(images), num_keypoints,
+                            compute_dtype)
+        kpts, desc, valid = (mesh.gather_batch(out[k])
+                             for k in ("kpts", "desc", "valid"))
+        b = out["kpts"].shape[0]
+        lo = mesh.coords[0] * b
+        d, v = desc[lo:lo + b + 1], valid[lo:lo + b + 1]
+        if len(d) == b:  # the last rank: one pair of its last frame with
+            d = torch.cat([d, d[-1:]])  # itself, which is dropped
+            v = torch.cat([v, v[-1:]])
+        res = match_consecutive(d, v)
+        return (kpts, desc, valid, mesh.gather_batch(res.idx)[:B - 1],
+                mesh.gather_batch(res.mask)[:B - 1])
+
+    return pipeline

@@ -1,11 +1,18 @@
-"""Self-supervised XFeat training on one device.
+"""Self-supervised XFeat training, on one device or data- and
+tensor-parallel over a mesh.
 
 Counterpart of ``xfeatslam_tpu/parallel/train.py``: the same cross-view
 loss over rendered view pairs with known geometry (``loss_fn``), the same
 teachers and augmentation, Adam with optax's defaults, and a trainer that
 keeps the pair pool on the device and gathers each step's rows there
-(``make_pool_trainer``). The JAX module's mesh (``param_shardings``, the
-sharded batch) has no counterpart: the port trains on one device.
+(``make_pool_trainer``).
+
+On a mesh (``parallel/mesh.py``) the batch is split over "data" and the
+wide layers (``param_shardings``) over "model": each model rank holds only
+its part of their output features, so Adam's state is split with them.
+The loss is the whole batch's: its normalizers and the gradients are summed
+over the data ranks, so a step on the mesh is the one-device step. A mesh
+of one rank runs the one-device code.
 
 Random draws cannot follow JAX's keys, so ``photometric_aug`` is split in
 two: ``draw_aug`` takes its numbers from a ``torch.Generator`` and
@@ -25,10 +32,64 @@ import contextlib
 import math
 
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.xfeat import BN_EPS
 from ..ops import image as image_ops
+from .mesh import ModelSplit, Sharding, replicated
+
+# the layers whose output features go over "model": JAX's key-path test,
+# a substring test, so block_fusion_final is one of them
+WIDE_LAYERS = ("block5", "block_fusion", "fine_matcher")
+
+
+def param_shardings(mesh, model: nn.Module, strict: bool = False) -> dict:
+    """{parameter name: ``Sharding``}: dim 0 (the output features) of the
+    wide layers' weights and biases over "model", everything else whole.
+
+    A wide layer whose width does not divide the model axis stays whole;
+    with ``strict`` and a model axis above 1 it raises instead, naming the
+    layer (a whole block5 on a tensor-parallel mesh wastes the axis)."""
+    n = mesh.shape["model"]
+    out = {}
+    for name, p in model.named_parameters():
+        spec = replicated(mesh)
+        if any(w in name for w in WIDE_LAYERS) and p.ndim in (1, 2, 4):
+            if p.shape[0] % n == 0:
+                spec = Sharding(mesh, "model")
+            elif strict and n > 1 and p.ndim > 1:
+                raise ValueError(
+                    f"wide layer {name} (shape {tuple(p.shape)}) does not "
+                    f"divide the model axis ({n}); refusing to keep it "
+                    f"whole on a tensor-parallel mesh")
+        out[name] = spec
+    return out
+
+
+def shard_model(model: nn.Module, mesh) -> nn.Module:
+    """Partition ``model`` in place over the mesh's "model" axis as
+    ``param_shardings`` says, strictly (a wide layer whose width does not
+    divide the axis raises): each split conv or linear keeps only this
+    rank's part of its weight and bias and gathers its output features
+    (``mesh.ModelSplit``). A model axis of 1 leaves it as it is."""
+    if mesh.shape["model"] == 1:
+        return model
+    specs = param_shardings(mesh, model, strict=True)
+    for name, layer in model.named_modules():
+        if not isinstance(layer, (nn.Conv2d, nn.Linear)):
+            continue
+        spec = specs[f"{name}.weight"]
+        if spec.axis != "model":
+            continue
+        with torch.no_grad():
+            for attr in ("weight", "bias"):
+                part = spec.local(getattr(layer, attr)).clone()
+                setattr(layer, attr, nn.Parameter(
+                    part, requires_grad=getattr(layer, attr).requires_grad))
+        layer.model_split = ModelSplit(
+            mesh, 1 if isinstance(layer, nn.Conv2d) else -1)
+    return model
 
 
 def identity_pair_batch(images):
@@ -216,7 +277,8 @@ def _norm(f):
 
 def loss_fn(model, batch, temp: float = 0.1, teacher_gain: float = 5.0,
             kp_teacher: str = "contrast", response: str = "contrast5",
-            sigma: float = 0.7, loc_weight: float = 0.0, aug=None):
+            sigma: float = 0.7, loc_weight: float = 0.0, aug=None,
+            mesh=None):
     """Cross-view self-supervised loss over a pair batch: descriptor
     InfoNCE at the ground-truth correspondences (B's cells within 1.5
     cells of the match left out of the negatives), the keypoint head's
@@ -231,13 +293,24 @@ def loss_fn(model, batch, temp: float = 0.1, teacher_gain: float = 5.0,
     (the network inputs augmented with ``draw_aug``'s numbers, A's then
     B's); or a pair of ``draw_aug``-style dicts for A and B. The teachers
     always see the clean renders. Returns (loss, {"nce", "kp", "rel",
-    "loc"}), 0-dim tensors."""
+    "loc"}), 0-dim tensors.
+
+    mesh: None, or a mesh whose "data" axis splits the batch; ``batch``
+    and ``aug`` are then this rank's rows, each normalizer is summed over
+    the data ranks, and the loss and aux are this rank's shares, whose sums
+    over the data ranks are the whole batch's."""
     img_a, img_b = batch["img_a"], batch["img_b"]
     corr_px, px_valid = batch["corr_px"], batch["px_valid"]
     B, H, W, _ = img_a.shape
     H8, W8 = H // 8, W // 8
     N = H8 * W8
     dev = img_a.device
+    # the data ranks' shards are equal: a mean over the whole batch is the
+    # sum of each rank's mean over the number of ranks
+    n_data = 1 if mesh is None else mesh.shape["data"]
+
+    def total(x):  # a normalizer (no gradient) over the whole batch
+        return x if mesh is None else mesh.data_sum(x)
     f32 = dict(dtype=torch.float32, device=dev)
 
     if aug is None:
@@ -281,7 +354,7 @@ def loss_fn(model, batch, temp: float = 0.1, teacher_gain: float = 5.0,
     sim_neg = sim_neg.masked_fill(near, -math.inf)
     denom = torch.logaddexp(sim_pos, torch.logsumexp(sim_neg, -1))
     w = valid_at_c.float()
-    nce = ((denom - sim_pos) * w).sum() / w.sum().clamp_min(1.0)
+    nce = ((denom - sim_pos) * w).sum() / total(w.sum()).clamp_min(1.0)
 
     # ---- keypoint head: cross-view teacher (contrast | peak) ----
     xa = instance_norm(img_a.mean(-1, keepdim=True))
@@ -305,11 +378,12 @@ def loss_fn(model, batch, temp: float = 0.1, teacher_gain: float = 5.0,
     else:
         raise ValueError(f"kp_teacher {kp_teacher!r}: 'contrast' or 'peak'")
     # optax.softmax_cross_entropy
-    kp_loss = -(teacher * F.log_softmax(logits_a, -1)).sum(-1).mean()
+    kp_loss = (-(teacher * F.log_softmax(logits_a, -1)).sum(-1).mean()
+               / n_data)
 
     # ---- reliability: cross-view descriptor agreement ----
     agree = ((fa * fb_pos).sum(-1) * 0.5 + 0.5).detach() * w
-    rel_loss = ((heat_a.reshape(B, N) - agree) ** 2).mean()
+    rel_loss = ((heat_a.reshape(B, N) - agree) ** 2).mean() / n_data
 
     # ---- cross-view localization agreement (loc_weight > 0) ----
     loc_loss = torch.zeros((), **f32)
@@ -346,7 +420,8 @@ def loss_fn(model, batch, temp: float = 0.1, teacher_gain: float = 5.0,
         # a gate, not a path that shrinks every cell's mass
         wgt = (torch.minimum(kp_a, kp_b.gather(1, cell))
                * v_at_peak.float()).detach()
-        loc_loss = loc_weight * (wgt * hub).sum() / wgt.sum().clamp_min(1.0)
+        loc_loss = (loc_weight * (wgt * hub).sum()
+                    / total(wgt.sum()).clamp_min(1.0))
 
     return nce + kp_loss + rel_loss + loc_loss, {
         "nce": nce, "kp": kp_loss, "rel": rel_loss, "loc": loc_loss}
@@ -419,35 +494,74 @@ def deterministic():
         torch.backends.cudnn.benchmark = prev[3]
 
 
-def _step(model, opt, batch, aug, loss_kw):
+def _step(model, opt, batch, aug, loss_kw, mesh=None):
+    """One optimizer step; on a mesh, ``batch`` and ``aug`` are this rank's
+    rows and the step is the whole batch's (gradients, loss and aux summed
+    over the data ranks)."""
     opt.zero_grad()
-    loss, aux = loss_fn(model, batch, aug=aug, **loss_kw)
+    loss, aux = loss_fn(model, batch, aug=aug, mesh=mesh, **loss_kw)
     loss.backward()
+    figures = [loss.detach(), *(v.detach() for v in aux.values())]
+    if mesh is not None:
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = mesh.data_sum(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view(g.shape))
+        figures = mesh.data_sum(torch.stack(figures)).unbind()
     opt.step()
-    return loss.detach(), {k: v.detach() for k, v in aux.items()}
+    return figures[0], dict(zip(aux, figures[1:]))
 
 
-def make_train_step(optimizer=None, **loss_kw):
+def _local_aug(mesh, aug, shapes, device):
+    """This rank's rows of the whole batch's augmentation: ``aug`` drawn
+    from a generator as one device draws it (A's numbers, then B's, of
+    ``shapes``), or the whole batch's draws given; None stays None."""
+    if isinstance(aug, torch.Generator):
+        aug = tuple(draw_aug(aug, shape, device) for shape in shapes)
+    return None if aug is None else tuple(
+        {k: mesh.shard_batch(v) for k, v in d.items()} for d in aug)
+
+
+def _one_rank(mesh):
+    """None for no mesh or a mesh of one rank: the one-device code."""
+    return None if mesh is None or mesh.size == 1 else mesh
+
+
+def make_train_step(optimizer=None, mesh=None, **loss_kw):
     """Returns (init_fn, step_fn): ``init_fn(model)`` -> (model, opt), the
     optimizer built over the trainable ``model``'s parameters (``adam(1e-3)``
     unless ``optimizer`` is given); ``step_fn(model, opt, batch, aug=None)``
     -> (model, opt, loss, aux) takes one optimizer step in place, under
-    ``deterministic()``. ``loss_kw`` goes to ``loss_fn``."""
+    ``deterministic()``. ``loss_kw`` goes to ``loss_fn``.
+
+    With a ``mesh`` of more than one rank, ``init_fn`` partitions the model
+    (``shard_model``, strict) and every rank passes the whole batch (and
+    ``aug``: a generator, seeded alike on every rank, or the whole batch's
+    draws); each rank steps on its rows and the returned loss and aux are
+    the whole batch's."""
     optimizer = optimizer or adam(1e-3)
+    mesh = _one_rank(mesh)
 
     def init_fn(model):
+        if mesh is not None:
+            shard_model(model, mesh)
         return model, optimizer(model.parameters())
 
     def step_fn(model, opt, batch, aug=None):
+        if mesh is not None:
+            aug = _local_aug(mesh, aug, (batch["img_a"].shape,
+                                         batch["img_b"].shape),
+                             batch["img_a"].device)
+            batch = {k: mesh.shard_batch(v) for k, v in batch.items()}
         with deterministic():
-            loss, aux = _step(model, opt, batch, aug, loss_kw)
+            loss, aux = _step(model, opt, batch, aug, loss_kw, mesh)
         return model, opt, loss, aux
 
     return init_fn, step_fn
 
 
 def make_pool_trainer(optimizer=None, steps_per_call: int = 16,
-                      augment: bool = True, **loss_kw):
+                      augment: bool = True, mesh=None, **loss_kw):
     """A trainer over a pair pool that stays on the device.
 
     Returns (init_fn, run_fn): ``init_fn`` as ``make_train_step``'s;
@@ -456,11 +570,14 @@ def make_pool_trainer(optimizer=None, steps_per_call: int = 16,
     step s on the pool rows ``idx[s]`` gathered on the device, the
     augmentation's numbers drawn from ``gen`` when ``augment``; the steps
     run as ``make_train_step``'s, under ``deterministic()``. The mean loss
-    and aux stay on the device (one read for the caller)."""
-    optimizer = optimizer or adam(1e-3)
+    and aux stay on the device (one read for the caller).
 
-    def init_fn(model):
-        return model, optimizer(model.parameters())
+    With a ``mesh`` of more than one rank, every rank passes the same pool,
+    ``idx`` and seeded ``gen``: each takes its data rank's part of each
+    step's rows, and its part of the draws made for the whole batch."""
+    optimizer = optimizer or adam(1e-3)
+    mesh = _one_rank(mesh)
+    init_fn, _ = make_train_step(optimizer, mesh)
 
     def run_fn(model, opt, pool, idx, gen=None):
         if idx.shape[0] != steps_per_call:
@@ -469,9 +586,14 @@ def make_pool_trainer(optimizer=None, steps_per_call: int = 16,
         total, totals = 0.0, {}
         with deterministic():
             for s in range(idx.shape[0]):
-                batch = {k: v[idx[s]] for k, v in pool.items()}
-                loss, aux = _step(model, opt, batch,
-                                  gen if augment else None, loss_kw)
+                rows = idx[s] if mesh is None else mesh.shard_batch(idx[s])
+                batch = {k: v[rows] for k, v in pool.items()}
+                aug = gen if augment else None
+                if mesh is not None:
+                    aug = _local_aug(mesh, aug, [
+                        (idx.shape[1], *pool[k].shape[1:])
+                        for k in ("img_a", "img_b")], pool["img_a"].device)
+                loss, aux = _step(model, opt, batch, aug, loss_kw, mesh)
                 total = total + loss
                 totals = {k: totals.get(k, 0.0) + v for k, v in aux.items()}
         n = idx.shape[0]

@@ -12,6 +12,16 @@ in the JAX package's npz layout, so either package loads them.
 
     python -m xfeatslam_tpu_torch.tools.train_xfeat --steps 2000 \\
         --out weights/xfeat_synthetic.npz
+
+Like the JAX tool it trains over every device it is given, on a (data,
+model) mesh (``parallel/mesh.make_mesh``): one process trains alone; under
+``torchrun --nproc-per-node=N`` each rank takes its card (NCCL, or gloo
+with ``--device cpu``), the batch goes over the data ranks and the wide
+layers over the model ranks, and only rank 0 prints and writes the
+checkpoint.
+
+    torchrun --nproc-per-node=4 -m xfeatslam_tpu_torch.tools.train_xfeat \\
+        --steps 2000 --batch 16 --out weights/xfeat_synthetic.npz
 """
 
 from __future__ import annotations
@@ -232,18 +242,36 @@ def main(argv=None):
                  "the pool render)")
 
     import torch
+    import torch.distributed as dist
 
     from .. import resolve_device
     from ..models import weights as wio
-    from ..parallel import train
+    from ..parallel import mesh as mesh_lib, train
     from . import float32_math
 
     float32_math()
     dev = resolve_device(args.device)
-    print("device:", dev, torch.cuda.get_device_name(dev)
-          if dev.type == "cuda" else "", flush=True)
+    # under torchrun: join its ranks, each on its own card
+    joined = (int(os.environ.get("WORLD_SIZE", "1")) > 1
+              and not dist.is_initialized())
+    if joined:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    mesh = mesh_lib.make_mesh(device=dev)
+    dev = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **kw: None)  # rank 0 speaks
+
+    def save(path, model):
+        params = wio.to_params(model)  # every rank: it gathers the layers
+        if lead:
+            wio.save_npz(path, params)
+
+    say("device:", dev, torch.cuda.get_device_name(dev)
+        if dev.type == "cuda" else "", f"mesh {mesh.shape}", flush=True)
     rng = np.random.default_rng(0)
-    print("rendering training pair pool...", flush=True)
+    say("rendering training pair pool...", flush=True)
     pool = render_pair_pool(rng, n_scenes=args.scenes,
                             pairs_per_scene=args.pairs_per_scene,
                             hw=tuple(args.hw),
@@ -251,7 +279,7 @@ def main(argv=None):
                             # keep the FOV of the default 128x160 crops
                             f=130.0 * args.hw[1] / 160.0)
     n_pool = len(pool["img_a"])
-    print(f"pool: {n_pool} pairs of {pool['img_a'].shape[1:3]}", flush=True)
+    say(f"pool: {n_pool} pairs of {pool['img_a'].shape[1:3]}", flush=True)
 
     lr = (train.warmup_cosine_schedule(args.lr, args.steps) if args.cosine
           else args.lr)
@@ -259,7 +287,8 @@ def main(argv=None):
                    sigma=args.sigma, loc_weight=args.loc_weight)
     S = max(args.steps_per_call, 1)
     init_fn, run_fn = train.make_pool_trainer(
-        train.adam(lr), steps_per_call=S, augment=args.aug, **loss_kw)
+        train.adam(lr), steps_per_call=S, augment=args.aug, mesh=mesh,
+        **loss_kw)
     model, opt = init_fn(wio.trainable(args.init or 0, device=dev))
     pool_dev = {k: torch.from_numpy(v).to(dev) for k, v in pool.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -274,15 +303,17 @@ def main(argv=None):
         if call % max(1, 50 // S) == 0:
             extra = (f" loc={float(aux['loc']):.3f}"
                      if float(args.loc_weight) > 0 else "")
-            print(f"step {step}: loss={float(loss):.4f} "
-                  f"nce={float(aux['nce']):.3f} kp={float(aux['kp']):.3f} "
-                  f"rel={float(aux['rel']):.3f}{extra} "
-                  f"({(time.time()-t0)/max(step+S,1):.3f}s/step)", flush=True)
+            say(f"step {step}: loss={float(loss):.4f} "
+                f"nce={float(aux['nce']):.3f} kp={float(aux['kp']):.3f} "
+                f"rel={float(aux['rel']):.3f}{extra} "
+                f"({(time.time()-t0)/max(step+S,1):.3f}s/step)", flush=True)
         if step and args.save_every and step % args.save_every < S:
-            wio.save_npz(args.out, model)
-            print(f"saved {args.out} at step {step}", flush=True)
-    wio.save_npz(args.out, model)
-    print(f"done: {args.out}", flush=True)
+            save(args.out, model)
+            say(f"saved {args.out} at step {step}", flush=True)
+    save(args.out, model)
+    say(f"done: {args.out}", flush=True)
+    if joined:
+        dist.destroy_process_group()
     return model
 
 
