@@ -28,7 +28,9 @@ Phases, each fatal on failure:
      P=31 and P=1, M=4096, N=1 and M=1, each with its launch's CTA count;
      one call of each matcher wrapper under
      ``torch.cuda.set_sync_debug_mode("error")``; the whole path against the
-     plain path on the same card; the sharded pipeline on a mesh of one
+     plain path on the same card; the reference NMS (``detect.nms_mask``)
+     and ``geometry.essential_from_pose``, which no path runs, on the card
+     against the CPU; the sharded pipeline on a mesh of one
      rank (``parallel/mesh.make_mesh(1)``, no process group):
      ``make_sharded_pipeline`` in float32 and bf16, each bit for bit
      against ``extract_batch`` + ``match_consecutive`` in its dtype and
@@ -199,7 +201,10 @@ Phases, each fatal on failure:
      the monocular run 1, and ``merge_inertial_ba``'s 24-slot solve on
      TestMergeInertialBA's welded 13-keyframe scene, built on the card
      (err1 < 0.5 err0); where a float32 LM decision differs, the fields it
-     moves are held to the JAX tests' bars; the phase's time.
+     moves are held to the JAX tests' bars; each solver's graph captures
+     across the three inertial Systems, which share their graphs (the
+     bias priors and bf are 0-d tensor inputs, not graph keys), with
+     their seconds; the phase's time.
  20. in-framework training and the rest of ROADMAP item 16:
      ``parallel/train.loss_fn`` at tools/train_xfeat.py's defaults (batch
      16, 128x160, the contrast teacher, warm start from the shipped
@@ -878,6 +883,32 @@ def compare_top2(ck, a, b, vb, label, exact=False):
           f"top2 [{label}]: best columns disagree")
     check(err <= 1e-6, f"top2 [{label}]: similarities differ by more than 1e-6")
     return {"max_abs_err": err}
+
+
+def surface_check(logits, dev):
+    """The two plain functions of the port's surface that no path runs, on
+    the card against the CPU: ``detect.nms_mask`` (the reference's
+    full-resolution NMS) on the keypoint heatmap of the main path's frames
+    0-3, masks equal; ``geometry.essential_from_pose`` on 1,024 seeded
+    poses, within 1e-6."""
+    from xfeatslam_tpu_torch.ops import detect, geometry, lie
+
+    t0 = time.perf_counter()
+    heat = detect.keypoint_heatmap(logits[:4])
+    mask = detect.nms_mask(heat).cpu()
+    mask_cpu = detect.nms_mask(heat.cpu())
+    rng = np.random.default_rng(0)
+    R12 = lie.so3_exp(torch.from_numpy(
+        rng.normal(0, 1, (1024, 3)).astype(np.float32)))
+    t12 = torch.from_numpy(rng.normal(0, 2, (1024, 3)).astype(np.float32))
+    E = geometry.essential_from_pose(R12.to(dev), t12.to(dev)).cpu()
+    err = float((E - geometry.essential_from_pose(R12, t12)).abs().max())
+    same = torch.equal(mask, mask_cpu)
+    print(f"surface: nms_mask on {tuple(heat.shape)} card vs CPU equal "
+          f"{same} ({int(mask.sum())} survivors); essential_from_pose max "
+          f"abs err {err:.3e}; {time.perf_counter() - t0:.2f} s")
+    check(same and bool(mask.any()), "nms_mask: card and CPU disagree")
+    check(err <= 1e-6, "essential_from_pose: card and CPU disagree")
 
 
 def mesh_pipeline_phase(ck, batched, model, images):
@@ -3406,7 +3437,9 @@ VI_ORB_ALLOWED = ("pose_lm", "local_ba")
 class _Recorder:
     """Stands in for a captured solver and keeps a copy of the inputs of
     its first and its latest call (while ``store`` is a list), and of the
-    first call of each static signature (``by_static``)."""
+    first call of each static signature and set of 0-d tensor values (the
+    bias priors and bf, which the graph's key does not hold:
+    ``by_static``)."""
 
     def __init__(self, graph):
         self.graph, self.store, self.by_static = graph, [], {}
@@ -3415,7 +3448,9 @@ class _Recorder:
         if self.store is not None:
             call = (tuple(a.clone() for a in tensors), dict(static))
             self.store[1:] = [call]
-            self.by_static.setdefault(tuple(sorted(static.items())), call)
+            self.by_static.setdefault(
+                (tuple(sorted(static.items())),
+                 tuple(float(a) for a in tensors if a.dim() == 0)), call)
         return self.graph(tensors, **static)
 
 
@@ -3678,7 +3713,7 @@ def _solver_bound(name, tensors, static):
         flops = n * 2600
     elif name.startswith("pose_inertial"):
         n_dir = 15 if name == "pose_inertial" else 30
-        n_edges = int(tensors[-3].sum())  # valid visual edges
+        n_edges = int(tensors[-4].sum())  # valid visual edges
         m = 3 * n_edges + 15 + (15 if n_dir == 30 else 0)
         # 3 rounds x 8 LM iterations: the residuals and their derivative
         # in n_dir directions (~60 ops per edge each), J^T J, the solve
@@ -4160,7 +4195,19 @@ def merge_inertial_ba_check(dev):
     return rec.store, rec.graph
 
 
-def inertial_mono_stereo_phase(ck, graphs_from=None):
+def inertial_captures(system):
+    """Each inertial solver's captures in ``system``'s graphs, which every
+    inertial System of the script shares: (count, host seconds, warm-ups
+    included)."""
+    out = {}
+    for name, (part, attr) in VI_GRAPHS.items():
+        g = getattr(getattr(system, part), attr)
+        secs = getattr(g, "graph", g).capture_seconds
+        out[name] = (len(secs), round(sum(secs), 2))
+    return out
+
+
+def inertial_mono_stereo_phase(ck, graphs_from):
     """``System(Sensor.IMU_MONOCULAR)`` and ``System(Sensor.IMU_STEREO)``:
     the ORB monocular System on TestImuMonocular's run twice and the ORB
     stereo System on TestImuStereo's twice (run 2 replaying run 1's graphs,
@@ -4226,10 +4273,11 @@ def inertial_mono_stereo_phase(ck, graphs_from=None):
           "IMU_STEREO xfeat: a pair from 1 was not OK")
 
     # the new solver calls, card against CPU
+    # an inertial_init call's bias priors are its last two tensors
     by_static = mono[0]["by_static"]["inertial_init"]
     free = [c for c in by_static.values()
-            if c[1]["prior_a"] == 1e6 and not c[1]["fix_scale"]]
-    refine = [c for c in by_static.values() if c[1]["prior_g"] == 1e8]
+            if float(c[0][-1]) == 1e6 and not c[1]["fix_scale"]]
+    refine = [c for c in by_static.values() if float(c[0][-2]) == 1e8]
     check(free, "IMU_MONOCULAR: no scale-free first initialization recorded")
     check(refine, "IMU_MONOCULAR: no scale refinement recorded")
     graph = getattr(b["system"].local_mapping._init_graph, "graph",
@@ -4243,6 +4291,9 @@ def inertial_mono_stereo_phase(ck, graphs_from=None):
         {"local_inertial_ba": weld_calls},
         {"local_inertial_ba": weld_graph})["local_inertial_ba"]
     print("inertial mono/stereo solvers: " + json.dumps(rows))
+    print("inertial captures of the IMU_RGBD, IMU_MONOCULAR and IMU_STEREO "
+          "Systems (count, seconds): " + json.dumps(
+              inertial_captures(graphs_from)))
     print(f"inertial mono/stereo phase: {time.perf_counter() - t_phase:.1f} s")
     return {"imu_mono": b["counts"], "imu_stereo": stereo[1]["counts"],
             "imu_stereo_xfeat": xs["counts"]}, rows
@@ -4824,6 +4875,7 @@ def run(batch: int, root: str):
     report["mutual_nn_pairs"] = compare_mnn(ck, args, "main path")
     odd_shape_checks(ck, detect, dev)
     matcher_checks(ck, dev, args)
+    surface_check(logits, dev)
 
     # ---- the whole path against the plain path on the same card ----
     with plain_kernels(ck):

@@ -120,6 +120,13 @@ def test_inertial_init_against_jax(fix_scale):
         np.ones(15, bool)]
     j = jin.inertial_init(*(jnp.asarray(a) for a in args), **kw)
     t = tin.inertial_init(*(T(a) for a in args), **kw)
+    # the bias priors as 0-d tensors, the form the card's graph takes: the
+    # same solve, bit for bit
+    priors = (torch.tensor(1e2), torch.tensor(kw.get("prior_a", 1e6)))
+    t_tensors = tin.inertial_init(*(T(a) for a in args), *priors,
+                                  fix_scale=fix_scale)
+    for a, b in zip(t, t_tensors):
+        assert torch.equal(a, b)
     s_j, s_t = float(j.scale), float(t.scale)
     assert abs(s_t - s_j) <= 1e-4 * s_j
     g = np.array([0, 0, -9.81])
@@ -200,7 +207,7 @@ def test_pose_inertial_optimization_against_jax():
     flat = tin.pose_inertial_flat(
         *(T(a) for a in states), *(T(f) for f in pre),
         *(T(a) for a in _visual_args(Xw, uv)), T(I3), torch.zeros(3),
-        cam=CAM, bf=0.0)
+        torch.tensor(0.0), cam=CAM)
     t0 = tin.pose_inertial_optimization(
         *(T(a) for a in states), timu.Preintegrated(*(T(f) for f in pre)),
         *(T(a) for a in _visual_args(Xw, uv)), CAM, 0.0, T(I3),

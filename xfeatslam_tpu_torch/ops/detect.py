@@ -22,6 +22,7 @@ device-to-host sync per batch. The selected set is the same.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_kernels as ck
 from . import image as image_ops
@@ -35,6 +36,19 @@ def keypoint_heatmap(logits, softmax_temp: float = 1.0):
     scores = torch.softmax(logits * softmax_temp, dim=-1)[..., :64]
     x = scores.reshape(B, H8, W8, 8, 8).permute(0, 1, 3, 2, 4)
     return x.reshape(B, H8 * 8, W8 * 8, 1)
+
+
+def nms_mask(heatmap, threshold: float = 0.05, kernel_size: int = 5):
+    """The reference's full-resolution NMS (XFextractor.cc:219-248) on a
+    (B,H,W,1) heatmap: a pixel survives where it equals the max of its
+    kernel_size x kernel_size window (-inf past the border) and exceeds
+    ``threshold``. The plain form of what ``nms_mask_cells`` and the
+    detect kernel compute in cell space; the main path does not call it."""
+    pad = kernel_size // 2
+    x = heatmap.permute(0, 3, 1, 2)
+    x = F.pad(x, (pad, pad, pad, pad), value=float("-inf"))
+    local_max = F.max_pool2d(x, kernel_size, stride=1).permute(0, 2, 3, 1)
+    return (heatmap == local_max) & (heatmap > threshold)
 
 
 def _shift_cells(x, dim: int, delta: int, fill):

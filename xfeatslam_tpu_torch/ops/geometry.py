@@ -1,4 +1,4 @@
-"""Multi-view geometry: triangulation and fundamental matrices.
+"""Multi-view geometry: triangulation, essential and fundamental matrices.
 
 Counterpart of ``xfeatslam_tpu/ops/geometry.py`` (the roles of ORB-SLAM3's
 GeometricTools::ComputeF12 and Triangulate), and of its batched
@@ -65,6 +65,12 @@ def fundamental_from_poses(K1, R1w, t1w, K2, R2w, t2w):
     K1_inv_T = _tr(torch.linalg.inv_ex(K1)[0])
     K2_inv = torch.linalg.inv_ex(K2)[0]
     return mat_mul(mat_mul(mat_mul(K1_inv_T, so3_hat(t12)), R12), K2_inv)
+
+
+def essential_from_pose(R12, t12):
+    """E12 = [t12]x R12 for the relative pose from camera 2 to camera 1
+    (...,3,3)."""
+    return mat_mul(so3_hat(t12), R12)
 
 
 def epipolar_dist_sq(uv1, uv2, F12):

@@ -24,7 +24,6 @@ body<-camera extrinsic.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -177,15 +176,19 @@ def inertial_init(R_wb, p_wb, dts, dR, dV, dP, JRg, JVg, JVa, JPg, JPa,
 
     R_wb, p_wb: (K,3,3), (K,3) body poses; dts / dR / ... / J*: (K-1, ...)
     preintegrations between keyframes k and k+1 at zero bias; cov9:
-    (K-1,9,9); e_valid: (K-1,) mask; prior_g / prior_a: the bias priors;
-    fix_scale: True for stereo / RGB-D inertial. The caller applies
-    p_metric = s p_visual and rotates the world by R_wg^T."""
+    (K-1,9,9); e_valid: (K-1,) mask; prior_g / prior_a: the bias priors,
+    floats or 0-d tensors (as tensors, one captured graph serves every
+    prior of the initialization schedule); fix_scale: True for stereo /
+    RGB-D inertial. The caller applies p_metric = s p_visual and rotates
+    the world by R_wg^T."""
     K = R_wb.shape[0]
     E = K - 1
     Ls = _whitener9(cov9)
     w = e_valid.to(R_wb.dtype)
     g_nom = gravity_like(R_wb)
-    sq_g, sq_a = math.sqrt(prior_g), math.sqrt(prior_a)
+    sq_g, sq_a = (torch.as_tensor(v, dtype=R_wb.dtype,
+                                  device=R_wb.device).sqrt()
+                  for v in (prior_g, prior_a))
 
     def unpack(x):
         B = x.shape[0]
@@ -258,8 +261,23 @@ class PoseInertialResult(NamedTuple):
     inliers: torch.Tensor  # (N,) visual edge classification
     num_inliers: torch.Tensor
     # (15,15) information (J^T J at the solution) of the estimated state:
-    # the next frame's prior (for the LastFrame variant: the marginal of
-    # the current state after eliminating the last frame)
+    # the next frame's prior
+    H: torch.Tensor
+
+
+class PoseInertialFrameResult(NamedTuple):
+    """The result of ``pose_inertial_optimization_last_frame``: the fields
+    of ``PoseInertialResult``, in its order."""
+
+    R_wb: torch.Tensor
+    p_wb: torch.Tensor
+    v_w: torch.Tensor
+    bg: torch.Tensor
+    ba: torch.Tensor
+    inliers: torch.Tensor
+    num_inliers: torch.Tensor
+    # (15,15) marginal information of the current state after the last
+    # frame is Schur-eliminated: the next frame's prior
     H: torch.Tensor
 
 
@@ -271,7 +289,9 @@ class _Visual:
         self.Xw, self.obs_uv, self.obs_ur = Xw, obs_uv, obs_ur
         self.inv_sigma2, self.is_stereo, self.valid = (inv_sigma2, is_stereo,
                                                        valid)
-        self.cam, self.bf, self.R_bc, self.t_bc = cam, float(bf), R_bc, t_bc
+        # bf: a float, or a 0-d tensor when a captured graph takes it
+        self.cam, self.R_bc, self.t_bc = cam, R_bc, t_bc
+        self.bf = bf if torch.is_tensor(bf) else float(bf)
         self.thresh = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
 
     def residuals(self, R, p):
@@ -364,7 +384,7 @@ def pose_inertial_optimization(
     _, J = jacobian(lambda xx: residual_fn(xx, w_fin), x)
     H = _gram(J)
     return PoseInertialResult(R[0], p[0], v[0], bg[0], ba[0], inl,
-                              inl.to(torch.int32).sum(), 0.5 * (H + _mT(H)))
+                              inl.sum(dtype=torch.int32), 0.5 * (H + _mT(H)))
 
 
 @torch.no_grad()
@@ -372,7 +392,7 @@ def pose_inertial_optimization_last_frame(
         R_j, p_j, v_j, bg_j, ba_j, R_i, p_i, v_i, bg_i, ba_i, prior_L,
         pre: Preintegrated, Xw, obs_uv, obs_ur, inv_sigma2, is_stereo, valid,
         cam: Pinhole, bf, R_bc, t_bc, gravity=None,
-        rounds: int = 3, iters: int = 8) -> PoseInertialResult:
+        rounds: int = 3, iters: int = 8) -> PoseInertialFrameResult:
     """PoseInertialOptimizationLastFrame: between keyframes the per-frame
     solve chains posteriors. The last frame enters as a free 15-D state
     held by its marginalized prior (``prior_L`` (15,15), L delta whitens),
@@ -422,9 +442,9 @@ def pose_inertial_optimization_last_frame(
     H_ij = H[:15, 15:]
     Hm = H[15:, 15:] - mat_mul(_mT(H_ij),
                                torch.linalg.solve_ex(H_ii, H_ij)[0])
-    return PoseInertialResult(Rj[0], pj[0], vj[0], bgj[0], baj[0], inl,
-                              inl.to(torch.int32).sum(),
-                              0.5 * (Hm + _mT(Hm)))
+    return PoseInertialFrameResult(Rj[0], pj[0], vj[0], bgj[0], baj[0], inl,
+                                   inl.sum(dtype=torch.int32),
+                                   0.5 * (Hm + _mT(Hm)))
 
 
 # --------------------------------------------------------------------------
@@ -506,22 +526,22 @@ def local_inertial_ba_states(
 # CUDA graphs
 # --------------------------------------------------------------------------
 
-def pose_inertial_flat(*tensors, cam: Pinhole, bf: float):
+def pose_inertial_flat(*tensors, cam: Pinhole):
     """``pose_inertial_optimization`` on one flat tuple of tensors: the 8
-    states, the 12 fields of the preintegration, the 6 visual-edge tensors
-    and R_bc, t_bc (the form an ``InertialGraph`` captures)."""
+    states, the 12 fields of the preintegration, the 6 visual-edge tensors,
+    R_bc, t_bc and bf (0-d) (the form an ``InertialGraph`` captures)."""
     return pose_inertial_optimization(
         *tensors[:8], Preintegrated(*tensors[8:20]), *tensors[20:26], cam,
-        bf, *tensors[26:28])
+        tensors[28], *tensors[26:28])
 
 
-def pose_inertial_last_frame_flat(*tensors, cam: Pinhole, bf: float):
+def pose_inertial_last_frame_flat(*tensors, cam: Pinhole):
     """``pose_inertial_optimization_last_frame`` on one flat tuple: the 11
     states and the prior, the 12 fields of the preintegration, the 6
-    visual-edge tensors and R_bc, t_bc."""
+    visual-edge tensors, R_bc, t_bc and bf (0-d)."""
     return pose_inertial_optimization_last_frame(
         *tensors[:11], Preintegrated(*tensors[11:23]), *tensors[23:29], cam,
-        bf, *tensors[29:31])
+        tensors[31], *tensors[29:31])
 
 
 class InertialGraph(CapturedCalls):
@@ -531,8 +551,15 @@ class InertialGraph(CapturedCalls):
     (``track_step.CapturedCalls``). ``fn`` is called as
     ``fn(*tensors, **static)``; the key holds the tensors' shapes and dtypes
     and ``static``, which must hold every non-tensor argument (the camera as
-    a tuple of floats is rebuilt into a Pinhole). Returns the graph's
-    static outputs (read them with ``fetch`` first)."""
+    a tuple of floats is rebuilt into a Pinhole). A float that does not
+    change the graph's structure (bf, the bias priors) goes in as a 0-d
+    tensor, so that its values share one graph. Returns the graph's static
+    outputs (read them with ``fetch`` first)."""
+
+    # one warm-up call before the capture: a solver is 5k-270k small
+    # launches bound by their host cost (1-5 s eager), and every lazy
+    # initialization its ops need is done by the first call
+    WARMUP = 1
 
     def __init__(self, device, fn):
         super().__init__(device, fn.__name__)

@@ -171,7 +171,8 @@ def local_inertial_ba(prob: VIBAProblem, cam: Pinhole, R_bc, t_bc,
     each LM iteration's (kept, cost before, cost of the step) as a
     tensor."""
     g = gravity_like(prob.p_wb) if gravity is None else gravity
-    bf = float(bf)
+    # bf: a float, or a 0-d tensor when a captured graph takes it
+    bf = bf if torch.is_tensor(bf) else float(bf)
     K = prob.R_wb.shape[0]
     P = prob.X.shape[0]
     E = K - 1
@@ -335,20 +336,20 @@ def local_inertial_ba(prob: VIBAProblem, cam: Pinhole, R_bc, t_bc,
     return VIBAResult(lie.project_rotation(R), p, v, bg, ba, X, inlier, chi2)
 
 
-def problem_tensors(prob: VIBAProblem, R_bc, t_bc, gravity) -> tuple:
-    """A problem (with its plan) and the frame arguments as one flat tuple
-    of tensors: the inputs of a captured solve."""
-    return tuple(prob[:-1]) + tuple(prob.plan) + (R_bc, t_bc, gravity)
+def problem_tensors(prob: VIBAProblem, R_bc, t_bc, gravity, bf) -> tuple:
+    """A problem (with its plan) and the frame arguments (bf, a 0-d tensor,
+    last) as one flat tuple of tensors: the inputs of a captured solve."""
+    return tuple(prob[:-1]) + tuple(prob.plan) + (R_bc, t_bc, gravity, bf)
 
 
-def solve_flat(*tensors, cam: Pinhole, bf: float,
+def solve_flat(*tensors, cam: Pinhole,
                stage_iters: Tuple[int, int] = (5, 10),
                cg_iters: int = 40, trace=None) -> VIBAResult:
     """``local_inertial_ba`` on ``problem_tensors``' tuple (the function an
     ``inertial.InertialGraph`` captures)."""
     n = len(VIBAProblem._fields) - 1
     prob = VIBAProblem(*tensors[:n], plan=SegmentPlan(*tensors[n:n + 3]))
-    R_bc, t_bc, gravity = tensors[n + 3:]
+    R_bc, t_bc, gravity, bf = tensors[n + 3:]
     return local_inertial_ba(prob, cam, R_bc, t_bc, bf, gravity,
                              stage_iters=stage_iters, cg_iters=cg_iters,
                              trace=trace)

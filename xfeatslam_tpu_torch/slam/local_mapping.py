@@ -19,7 +19,9 @@ and 2 s, initializes with a free scale, and refines scale and gravity on
 pinned biases while its chain spans under 50 s. After a weld into an
 inertial map, ``merge_inertial_ba`` refines the two temporal windows
 around the weld. On the card the solvers replay CUDA graphs
-(``inertial.InertialGraph``), one per shape and schedule.
+(``inertial.InertialGraph``), one per shape and LM schedule; the
+initialization's bias priors are tensor inputs, so its four steps share
+one graph a chain bucket.
 """
 
 from __future__ import annotations
@@ -415,11 +417,13 @@ class LocalMapping:
             e_valid[i] = True
         if e_valid.sum() < 2:
             return False
+        # the priors go in as 0-d tensors, not in the graph's key: every
+        # step of the schedule replays the chain bucket's one graph
         tensors = tuple(torch.from_numpy(a).to(self.device) for a in (
             R_wb, p_wb, dts, dR, dV, dP, J["JRg"], J["JVg"], J["JVa"],
-            J["JPg"], J["JPa"], cov9, e_valid))
-        static = dict(prior_g=float(prior_g), prior_a=float(prior_a),
-                      fix_scale=not self.mono)
+            J["JPg"], J["JPa"], cov9, e_valid, np.array(prior_g, np.float32),
+            np.array(prior_a, np.float32)))
+        static = dict(fix_scale=not self.mono)
         res = fetch(self._init_graph(tensors, **static)
                     if self._init_graph is not None
                     else in_opt.inertial_init(*tensors, **static))
@@ -671,9 +675,10 @@ class LocalMapping:
         t_bc = self._t(cal.t_bc.astype(np.float32))
         g = imu_ops.gravity_like(R_bc)
         if self._viba_graph is not None:
-            res = self._viba_graph(viba.problem_tensors(prob, R_bc, t_bc, g),
-                                   cam=self.cam, bf=float(self.bf),
-                                   **solve_kw)
+            bf = torch.tensor(float(self.bf), device=self.device)
+            res = self._viba_graph(
+                viba.problem_tensors(prob, R_bc, t_bc, g, bf), cam=self.cam,
+                **solve_kw)
         else:
             res = viba.local_inertial_ba(prob, self.cam, R_bc, t_bc,
                                          float(self.bf), g, **solve_kw)

@@ -8,7 +8,9 @@ KannalaBrandt8 cameras; the stereo rig (camera 2, ``Stereo.T_c1_c2`` or
 rectification maps by ``precompute_rectification`` and ``rectify``
 (``utils/rectification``, numpy in place of ``cv2``); the IMU section
 (``ops/imu.ImuCalib``, the IMU rate and the initialization schedule) of
-the three inertial sensors, IMU_MONOCULAR, IMU_STEREO and IMU_RGBD.
+the three inertial sensors, IMU_MONOCULAR, IMU_STEREO and IMU_RGBD; and
+the Viewer, LoadAndSave and ``Camera.RGB`` keys, which are kept and not
+acted on, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +50,40 @@ def _K64(cam) -> np.ndarray:
 
 
 @dataclass
+class ViewerSettings:
+    """The Viewer section (Settings.cc:453-471), with the JAX package's
+    defaults."""
+
+    keyframe_size: float = 0.05
+    keyframe_line_width: float = 1.0
+    graph_line_width: float = 0.9
+    point_size: float = 2.0
+    camera_size: float = 0.08
+    camera_line_width: float = 3.0
+    viewpoint_x: float = 0.0
+    viewpoint_y: float = -0.7
+    viewpoint_z: float = -1.8
+    viewpoint_f: float = 500.0
+    image_view_scale: float = 1.0
+
+
+# ViewerSettings' fields and their keys in a config file
+_VIEWER_KEYS = (
+    ("keyframe_size", "Viewer.KeyFrameSize"),
+    ("keyframe_line_width", "Viewer.KeyFrameLineWidth"),
+    ("graph_line_width", "Viewer.GraphLineWidth"),
+    ("point_size", "Viewer.PointSize"),
+    ("camera_size", "Viewer.CameraSize"),
+    ("camera_line_width", "Viewer.CameraLineWidth"),
+    ("viewpoint_x", "Viewer.ViewpointX"),
+    ("viewpoint_y", "Viewer.ViewpointY"),
+    ("viewpoint_z", "Viewer.ViewpointZ"),
+    ("viewpoint_f", "Viewer.ViewpointF"),
+    ("image_view_scale", "Viewer.imageViewScale"),
+)
+
+
+@dataclass
 class Settings:
     camera_type: str = "PinHole"
     cam: object = None  # camera 1, Pinhole or KannalaBrandt8 (rectified)
@@ -79,6 +115,8 @@ class Settings:
     n_levels: int = 8
     ini_th_fast: int = 20
     min_th_fast: int = 7
+    # Camera.RGB: the colour order of the input images (1: RGB, 0: BGR)
+    rgb: bool = True
     # depth beyond this never becomes a map point (System.thFarPoints)
     th_far_points: Optional[float] = None
     # inertial calibration (readIMU); None for vision-only configs
@@ -90,6 +128,10 @@ class Settings:
     imu_init_time: float = 1.0
     viba1_time: float = 5.0
     viba2_time: float = 15.0
+    viewer: ViewerSettings = field(default_factory=ViewerSettings)
+    # LoadAndSave: System.LoadAtlasFromFile / System.SaveAtlasToFile
+    load_atlas_from: Optional[str] = None
+    save_atlas_to: Optional[str] = None
     raw: Dict = field(default_factory=dict)
 
     def __post_init__(self):
@@ -240,7 +282,7 @@ class Settings:
             if s.lapping2 is not None:
                 s.lapping2 = (int(s.lapping2[0] * sx), int(s.lapping2[1] * sx))
         s.fps = float(get("Camera.fps", required=True, default=30.0))
-        get("Camera.RGB", required=True)
+        s.rgb = bool(get("Camera.RGB", required=True, default=1))
 
         # IMU (readIMU, Settings.cc:414-433)
         if get("IMU.NoiseGyro") is not None or inertial:
@@ -291,6 +333,15 @@ class Settings:
         s.min_th_fast = int(get("ORBextractor.minThFAST", required=True,
                                 default=7))
 
+        # viewer (readViewer, Settings.cc:453-471)
+        for attr, key in _VIEWER_KEYS:
+            val = get(key)
+            if val is not None:
+                setattr(s.viewer, attr, float(val))
+
+        # load/save and the rest (Settings.cc:472-483)
+        s.load_atlas_from = get("System.LoadAtlasFromFile")
+        s.save_atlas_to = get("System.SaveAtlasToFile")
         tfp = get("System.thFarPoints")
         s.th_far_points = float(tfp) if tfp is not None else None
         if s.need_rectify:

@@ -1051,9 +1051,11 @@ class Tracking:
             states = (R_wb_j, p_wb_j, v_j, kf.bg, kf.ba, R_wb_i, p_wb_i,
                       kf.vel)
             fn, graph = (in_opt.pose_inertial_flat, self._pose_inertial_graph)
+        # bf last, as a 0-d tensor: not a key of the graph
+        bf = torch.tensor(float(self.pipeline.bf), device=self.device)
         flat = (tuple(t(np.asarray(a, np.float32)) for a in states)
-                + tuple(pre) + visual)
-        static = dict(cam=self.cam, bf=float(self.pipeline.bf))
+                + tuple(pre) + visual + (bf,))
+        static = dict(cam=self.cam)
         res = graph(flat, **static) if graph is not None else fn(*flat,
                                                                  **static)
         res = fetch(res)
