@@ -235,6 +235,11 @@ Phases, each fatal on failure:
      map3d.json, session.gif, /state and a command through urllib,
      ``export_map_html``); ``render_tum_dataset`` read back equal through
      ``utils/io``.
+ 21. the network's stem (``stem_phase``): ``xfeat_stem`` against its plain
+     route on ``STEM_CASES`` within ``STEM_TOL`` (both outputs and their
+     memory formats, two launches a call), the forward on both routes
+     within ``STEM_FORWARD_TOL``, and the kernel's and the plain route's
+     device ms by graph replay at the cells' batches beside its bound.
 
 Prints ``kernels: {...}`` with each path's launch counts, one JSON line
 ``{"kernels": [...]}`` with each kernel's numbers (``orb_launches``, the
@@ -298,6 +303,8 @@ KERNEL_SOURCES = {
                  "xfeatslam_tpu/models/orb.py:93 (XLA, not Pallas)"),
     "orb_describe": ("xfeatslam_tpu_torch/csrc/orb_describe.cu",
                      "xfeatslam_tpu/models/orb.py:148 (XLA, not Pallas)"),
+    "xfeat_stem": ("xfeatslam_tpu_torch/csrc/xfeat_stem.cu",
+                   "none: xfeatslam_tpu/models/xfeat.py's stem (XLA convs)"),
 }
 # a (5, 0) local-BA round must stay at this many kernel launches (it was
 # ~16,429 as tensor ops and 431 as a kernel sequence; one persistent
@@ -310,13 +317,14 @@ LOCAL_BA_MAX_LAUNCHES = 1
 # and one trial-cost pass (~40)
 LOCAL_BA_OPS_PER_OBS_CG_STEP = 108
 LOCAL_BA_OPS_PER_OBS_LM_ITER = 410
-# the kernels each path must launch
+# the kernels each path must launch; the network's stem kernel twice a
+# float32 forward on the card (the statistics, then the stem)
 BATCHED_KERNELS = {"detect_candidates": 1, "keypoint_desc": 1,
-                   "mutual_nn_pairs": 1}
+                   "mutual_nn_pairs": 1, "xfeat_stem": 2}
 # the kernels of one frame step and their launches: the pose LM once per
 # tracking stage
 FRAME_STEP_KERNELS = {"detect_candidates": 1, "keypoint_desc": 1,
-                      "pose_lm": 2}
+                      "pose_lm": 2, "xfeat_stem": 2}
 # the online frame step: TrackerConfig's XFeat defaults (slam/tracking.py)
 # and the local-map bucket
 M1, M2 = 1000, 4096
@@ -348,13 +356,15 @@ LOOP_RMSE_FACTOR = 1.25
 # the frames the relocalization phase feeds a lost tracker. RELOC_FRAME is
 # the view of the map's origin keyframe, which relocalizes within 1 cm
 # under every RANSAC seed tried (test_torch_slam_system.py's 40-frame
-# comparison prints the scan). RELOC_OTHER_FRAME is a view no keyframe was
-# made from (the run's keyframes come from frames 0, 3, 9, 36 and 39) that
-# relocalizes under the draws of its frame id here, 42: of frames 1-34
-# at frame id 42 on the card, frames 1, 2, 4, 7, 8, 11, 12, 22, 25, 30, 32
-# and 34 relocalize (frame 1 at 4.06 mm), the others fail, as later frames
-# do on some seeds only in the JAX package
-RELOC_FRAME, RELOC_OTHER_FRAME = 0, 1
+# comparison prints the scan). The other frame is a view no keyframe was
+# made from (the run's keyframes come from frames 0, 3, 9, 36 and 39),
+# which relocalizes under the draws of its frame id here, 42, only for
+# some views: on the card, of frames 1-34, the XFeat System relocalizes
+# 4, 5, 6, 7, 10, 11, 27 and 34 within 1 cm with the stem kernel, and 1,
+# 4, 7, 8 and 22 with the stem's plain ops, the others failing or landing
+# beyond 1 cm, as later frames do on some seeds in the JAX package; the
+# ORB System takes frame 1
+RELOC_FRAME, RELOC_OTHER_FRAME, ORB_RELOC_OTHER_FRAME = 0, 4, 1
 # the monocular phase: JAX's test_xfeat_mono_tracks_single_dispatch at
 # 640x480, K=1000, and its bars
 MONO_FRAMES, MONO_MIN_OK, MONO_MIN_CAPTURED = 18, 12, 8
@@ -402,7 +412,7 @@ ORB_BLUR_OPS_PER_SAMPLE = 98
 # room, the right view 8 cm along +x) and frame counts, and its bars
 STEREO_BASELINE, STEREO_FRAMES, ORB_STEREO_FRAMES = 0.08, 10, 8
 STEREO_KERNELS = {"detect_candidates": None, "keypoint_desc": None,
-                  "pose_lm": None}
+                  "pose_lm": None, "xfeat_stem": None}
 ORB_STEREO_KERNELS = {"pose_lm": None, "orb_fast": None,
                       "orb_describe": None}
 # tests/test_fisheye.py's rig: two KB8 cameras (EuRoC / TUM-VI-like),
@@ -932,8 +942,11 @@ def mesh_pipeline_phase(ck, batched, model, images):
                                              compute_dtype=dt)
         ck.reset_launch_counts()
         got = pipe(images)
+        # bf16 takes the stem's plain route
         counts[dt] = path_counts(
-            ck, f"make_sharded_pipeline, mesh of one, {dt}", BATCHED_KERNELS)
+            ck, f"make_sharded_pipeline, mesh of one, {dt}",
+            {**BATCHED_KERNELS, "xfeat_stem": 2 if dt == torch.float32
+             else 0})
         same = [torch.equal(a, b) for a, b in zip(got, want)]
         print(f"mesh of one, {dt}: kpts, desc, valid, match_idx, "
               f"match_mask bit-identical to the unsharded path: {same}")
@@ -1607,13 +1620,13 @@ def slam_phase(ck, n_frames):
     return run3, seq, run1["problems"], counts
 
 
-def relocalization_phase(ck, run, seq, kernels=FRAME_STEP_KERNELS,
+def relocalization_phase(ck, run, seq, other, kernels=FRAME_STEP_KERNELS,
                          label="relocalization"):
     """After the SLAM runs: the tracker set LOST takes frame RELOC_FRAME at
     a later time and must come back OK within 1 cm of the truth; then the
     same frame arrives RECENTLY_LOST with the motion model and the
     reference keyframe made to fail, so it goes through relocalization too
-    (that used to raise); then the tracker set LOST takes RELOC_OTHER_FRAME,
+    (that used to raise); then the tracker set LOST takes frame ``other``,
     which no keyframe was made from. Each comes back OK within 1 cm, the
     map unchanged (a LOST frame that fails resets a small map). Counted:
     each builds its frame with the extraction kernels (``kernels``: the
@@ -1626,8 +1639,8 @@ def relocalization_phase(ck, run, seq, kernels=FRAME_STEP_KERNELS,
     tr = system.tracking
     lm_calls = []
     kf_frames = sorted(kf.frame_id for kf in system.map.keyframes.values())
-    check(RELOC_OTHER_FRAME not in kf_frames,
-          f"frame {RELOC_OTHER_FRAME} is a keyframe's ({kf_frames})")
+    check(other not in kf_frames,
+          f"frame {other} is a keyframe's ({kf_frames})")
     map_id, kfs = system.map.map_id, system.map.num_keyframes()
     t_next = seq["timestamps"][-1] + 1.0
     ck.reset_launch_counts()
@@ -1635,7 +1648,7 @@ def relocalization_phase(ck, run, seq, kernels=FRAME_STEP_KERNELS,
     for label, state, i in (("LOST", State.LOST, RELOC_FRAME),
                             ("RECENTLY_LOST", State.RECENTLY_LOST,
                              RELOC_FRAME),
-                            ("LOST", State.LOST, RELOC_OTHER_FRAME)):
+                            ("LOST", State.LOST, other)):
         tr.state = state
         tr.lost_since = t_next - 0.1
         forced = state == State.RECENTLY_LOST
@@ -1678,7 +1691,7 @@ def relocalization_phase(ck, run, seq, kernels=FRAME_STEP_KERNELS,
     check(lm_calls, f"{tag} made no pose-LM call")
     err = max(compare_pose_lm(ck, args, kwargs, f"{tag} call {c}")
               for c, (args, kwargs) in enumerate(lm_calls))
-    return t_next, RELOC_OTHER_FRAME, err
+    return t_next, other, err
 
 
 def localization_phase(ck, run, seq, t_next, last,
@@ -3017,7 +3030,7 @@ def orb_phase(ck, root, cfg, seq):
     counts = run["counts"]
     run["errs"] = np.asarray(run["errs"])
     t_next, last, lm_err = relocalization_phase(
-        ck, run, slam_seq, kernels=ORB_FRAME_KERNELS,
+        ck, run, slam_seq, ORB_RELOC_OTHER_FRAME, kernels=ORB_FRAME_KERNELS,
         label="orb relocalization")
     localization_phase(ck, run, slam_seq, t_next, last,
                        kernels=ORB_FRAME_KERNELS,
@@ -3185,9 +3198,9 @@ def stereo_phase(ck):
     print(f"stereo: the step's graph records {per_step}; run 2 against run "
           f"1: every pose bit-identical {_same_poses(a['poses'], b['poses'])}")
     check(per_step == [{"detect_candidates": 1, "keypoint_desc": 1,
-                        "pose_lm": 2}],
+                        "pose_lm": 2, "xfeat_stem": 2}],
           "stereo: the step's graph does not launch detect and keypoint_desc "
-          "once and pose_lm twice")
+          "once and pose_lm and xfeat_stem twice")
     check(_same_poses(a["poses"], b["poses"]),
           "stereo: run 2 differs from run 1")
     tracked = b["graph_calls"]["StereoFrameStepGraph"]
@@ -3195,6 +3208,7 @@ def stereo_phase(ck):
     c = b["counts"]
     check(c["detect_candidates"] == tracked + 2 * built
           and c["keypoint_desc"] == tracked + 2 * built
+          and c["xfeat_stem"] == 2 * (tracked + 2 * built)
           and c["pose_lm"] >= 2 * tracked,
           f"stereo run 2: launches {c} are not one detect and keypoint_desc "
           f"and two pose_lm per replayed pair ({tracked}) and two extraction "
@@ -3370,8 +3384,8 @@ def fisheye_phase(ck):
         states.append(state.name)
         errs.append(float(np.linalg.norm(-pose[0].T @ pose[1] + Rg.T @ tg)))
     path_counts(ck, f"System(RGBD) through a KB8 camera, {n} frames",
-                {"detect_candidates": n, "keypoint_desc": n, "pose_lm": None},
-                allowed=("local_ba",))
+                {"detect_candidates": n, "keypoint_desc": n, "pose_lm": None,
+                 "xfeat_stem": 2 * n}, allowed=("local_ba",))
     st = system.shutdown()
     print(f"fisheye System: {n} RGB-D frames at {hw[1]}x{hw[0]} through a "
           f"KB8 camera: {states.count('OK')} OK, camera centre error max "
@@ -3991,8 +4005,8 @@ def inertial_phase(ck):
     wall = time.perf_counter() - t0
     counts = path_counts(
         ck, f"System(IMU_RGBD, backend='xfeat'), {VI_FRAMES} frames",
-        {"detect_candidates": VI_FRAMES, "keypoint_desc": VI_FRAMES},
-        allowed=VI_ORB_ALLOWED)
+        {"detect_candidates": VI_FRAMES, "keypoint_desc": VI_FRAMES,
+         "xfeat_stem": 2 * VI_FRAMES}, allowed=VI_ORB_ALLOWED)
     f = vi_figures(seq, run["system"])
     print(f"inertial xfeat ({wall:.1f} s): states "
           f"{run['states'].count('OK')} of {VI_FRAMES} OK; figures "
@@ -4270,7 +4284,8 @@ def inertial_mono_stereo_phase(ck, graphs_from):
     check(same, "IMU_STEREO orb: run 2 differs from run 1")
     xs, = _vi_sensor_runs(ck, seq_s, "IMU_STEREO", "xfeat",
                           {"detect_candidates": 2 * ns,
-                           "keypoint_desc": 2 * ns}, 1, rights=rights,
+                           "keypoint_desc": 2 * ns, "xfeat_stem": 4 * ns}, 1,
+                          rights=rights,
                           graphs_from=stereo[0]["system"], exact_first=True)
     print("IMU_STEREO xfeat: figures above without bars; timings "
           + json.dumps(_vi_report(xs)))
@@ -4712,7 +4727,8 @@ def tools_phase(ck, root, seq, settings, dev):
     m_dev = eval_repeatability.eval_pairs(ex_dev, pairs)
     counts = path_counts(ck, f"eval_repeatability, {EVAL_PAIRS} pairs",
                          {"detect_candidates": EVAL_PAIRS,
-                          "keypoint_desc": EVAL_PAIRS})
+                          "keypoint_desc": EVAL_PAIRS,
+                          "xfeat_stem": 2 * EVAL_PAIRS})
     m_cpu = eval_repeatability.eval_pairs(
         XFeatExtractor(nfeatures=EVAL_FEATURES, device="cpu"), pairs)
     print("eval_repeatability (shipped weights, 240x320, 600 features): "
@@ -4790,6 +4806,151 @@ def tools_phase(ck, root, seq, settings, dev):
     print("render_tum_dataset: 3 frames written by the port's PNG writer, "
           "read back equal through utils/io.associate_tum")
     return counts
+
+# the stem kernel's cases against its plain route: (label, B, H, W, frames),
+# the cells' shapes (TUM1 640x480, KITTI's 1216x352), a frame of one tile
+# and one whose last column of tiles is half outside; then a constant frame
+# (variance 0, so rstd = 1/sqrt(eps)) and a 0/1 checkerboard, whose borders
+# and padding show every misplaced tap
+STEM_CASES = (("natural", 3, 480, 640), ("natural", 2, 352, 1216),
+              ("natural", 1, 32, 32), ("natural", 2, 64, 96),
+              ("constant", 1, 480, 640), ("checkerboard", 1, 480, 640))
+# the stem kernel against the plain route: float32 sums of up to 72 terms
+# taken in another order over four layers, and the statistics in float64
+# against float32, ~1e-6 of the maps' scale; the bar is 10x that
+STEM_TOL = 1e-5
+# the whole forward, kernel route against plain route: the stem's ~1e-6
+# differences through twenty more float32 convs (6.9e-5 at most on feats,
+# 3 frames at 640x480, in the first chip run); the bar is ~7x that, and 10x
+# under the benchmark's descriptor limit
+STEM_FORWARD_TOL = 5e-4
+# the cells' batches, timed by graph replay: (label, B, H, W)
+STEM_SHAPES = (("offline.tum1.b256", 256, 480, 640),
+               ("offline.kitti.b256", 256, 352, 1216),
+               ("offline.tum1.b32", 32, 480, 640), ("batch 1", 1, 480, 640))
+
+
+def stem_frames(kind, B, h, w, rng):
+    """(B, h, w, 1) float32 frames on the card: smooth pattern, noise and
+    blobs; a constant 100/255; or a 0/1 checkerboard."""
+    if kind == "constant":
+        return torch.full((B, h, w, 1), 100 / 255, device="cuda")
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    if kind == "checkerboard":
+        f = ((yy + xx) % 2)[None, ..., None].repeat(B, 0)
+        return torch.from_numpy(f.astype(np.float32)).cuda()
+    out = []
+    for i in range(B):
+        img = (0.5 + 0.3 * np.sin(xx / 21 + i) * np.cos(yy / 17 - i)
+               + 0.05 * rng.standard_normal((h, w)))
+        for _ in range(40):
+            cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+            img += 0.4 * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 25.0)
+        out.append(np.clip(img, 0, 1))
+    return torch.from_numpy(np.stack(out).astype(np.float32)[..., None]).cuda()
+
+
+def stem_work(B, h, w):
+    """Multiply-adds and bytes of the stem at its least: block1's four
+    convs and the skip's 1x1; the frame read twice (statistics and stem),
+    both outputs written once."""
+    px = h * w
+    macs = B * (px * 36 + px // 4 * 288 + px // 4 * 576 + px // 16 * 1728
+                + px // 16 * 24)
+    nbytes = B * 4 * (2 * px + px // 16 * 24 + px)
+    return macs, nbytes
+
+
+def stem_phase(ck, model):
+    """The stem kernel (``xfeat_stem``) against its plain route on
+    ``STEM_CASES`` (both outputs, their memory formats, two launches a
+    call), the whole forward on both routes within ``STEM_FORWARD_TOL``,
+    then the kernel's and the plain route's device ms by graph replay at
+    the cells' batches beside the kernel's bound (by operations). Returns
+    the kernels line's row."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    blocks = (model.block1, model.skip1_conv)
+    occ = ck._entry("xfeat_stem_occupancy")()
+    print(f"stem: {occ} CTAs of the stem kernel resident per SM")
+    err_max = 0.0
+    with torch.no_grad():
+        for kind, B, h, w in STEM_CASES:
+            x = stem_frames(kind, B, h, w, rng)
+            ck.reset_launch_counts()
+            got = ck.xfeat_stem(x, *blocks)
+            path_counts(ck, f"xfeat_stem, {kind} {B}x{h}x{w}",
+                        {"xfeat_stem": 2})
+            want = ck.xfeat_stem_plain(x, *blocks)
+            errs = []
+            for name, a, b in zip(("block2 input", "unfold"), got, want):
+                check(a.shape == b.shape and a.stride() == b.stride(),
+                      f"stem {kind} {h}x{w}: {name} {a.shape} {a.stride()} "
+                      f"against {b.shape} {b.stride()}")
+                check(bool(torch.isfinite(a).all()),
+                      f"stem {kind} {h}x{w}: {name} not finite")
+                errs.append(float((a - b).abs().max()))
+                scale = 1.0 + float(b.abs().max())
+                if kind == "constant":
+                    # the plain route's float32 mean of a constant frame is
+                    # off by ulps, which rstd = 316 magnifies; the kernel's
+                    # float64 mean is the value itself: its normalized
+                    # frame is 0, and block1 sees a frame of zeros
+                    zero = ck.xfeat_stem_plain(torch.zeros_like(x), *blocks)
+                    zerr = float((a - zero[len(errs) - 1]).abs().max())
+                    check(zerr <= STEM_TOL * scale,
+                          f"stem constant: {name} {zerr:.3e} from the stem "
+                          f"of a zero frame")
+                    continue
+                check(errs[-1] <= STEM_TOL * scale,
+                      f"stem {kind} {B}x{h}x{w}: {name} max err "
+                      f"{errs[-1]:.3e} above {STEM_TOL} x {scale:.3g}")
+                err_max = max(err_max, errs[-1] / scale)
+            print(f"stem {kind} {B}x{h}x{w}: max abs err block2 input "
+                  f"{errs[0]:.3e}, unfold {errs[1]:.3e}; scale "
+                  f"{float(want[0].abs().max()):.3g}")
+        # the whole forward on both routes
+        x = stem_frames("natural", 3, H, W, rng)
+        ck.reset_launch_counts()
+        k = model(x)
+        path_counts(ck, "XFeat.forward, float32, 3 frames", {"xfeat_stem": 2})
+        with plain_kernels(ck):
+            p = model(x)
+        errs = []
+        for n, a, b in zip(("feats", "logits", "heatmap"), k, p):
+            errs.append(f"{n} {float((a - b).abs().max()):.3e}")
+            scale = 1.0 + float(b.abs().max())
+            check(float((a - b).abs().max()) <= STEM_FORWARD_TOL * scale,
+                  f"forward, kernel route against plain route: {errs[-1]} "
+                  f"above {STEM_FORWARD_TOL} x {scale:.3g}")
+        print("forward, kernel route against plain route, max abs err "
+              + ", ".join(errs))
+        # device ms by graph replay at the cells' batches
+        rows = {}
+        for label, B, h, w in STEM_SHAPES:
+            x = stem_frames("natural", 2, h, w, rng).repeat(
+                max(B // 2, 1), 1, 1, 1)[:B].contiguous()
+            calls = 2 if B > 32 else 10
+            k_ms = graph_ms(lambda: ck.xfeat_stem(x, *blocks), calls=calls)
+            p_ms = graph_ms(lambda: ck.xfeat_stem_plain(x, *blocks),
+                            calls=calls)
+            macs, nbytes = stem_work(B, h, w)
+            b_ms, b_by = bound_ms(nbytes, 2 * macs)
+            rows[label] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+            print(f"stem {label} ({B}x{h}x{w}): kernel {k_ms:.4f} ms by "
+                  f"graph replay, bound {b_ms:.4f} ms by {b_by} "
+                  f"({100 * b_ms / k_ms:.1f}%), plain route {p_ms:.4f} ms")
+            del x
+    print(f"stem phase: {time.perf_counter() - t0:.1f} s")
+    src, rep = KERNEL_SOURCES["xfeat_stem"]
+    main = rows["offline.tum1.b32"]
+    return {"name": "xfeat_stem", "route": "cuda", "source": src,
+            "replaces": rep, "max_abs_err": err_max,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "cells": rows}
+
 
 def run(batch: int, root: str):
     t_run = time.perf_counter()
@@ -4933,7 +5094,8 @@ def run(batch: int, root: str):
 
     # ---- the RGB-D SLAM host, three runs; relocalization; localization ----
     run, seq, problems, slam_launches = slam_phase(ck, SLAM_FRAMES)
-    t_next, last, reloc_lm_err = relocalization_phase(ck, run, seq)
+    t_next, last, reloc_lm_err = relocalization_phase(ck, run, seq,
+                                                      RELOC_OTHER_FRAME)
     localization_phase(ck, run, seq, t_next, last)
 
     # ---- loop closing on bench.py's loop workload; the atlas files ----
@@ -4945,6 +5107,10 @@ def run(batch: int, root: str):
 
     # ---- local BA on the card, eager and by graph replay ----
     _, ba_row = local_ba_phase(ck, problems, run["system"].settings, dev)
+
+    # ---- the network's stem: the kernel, its bound, the plain route ----
+    stem_row = stem_phase(ck, model)
+    stem_row["launches"] = launches["xfeat_stem"]
 
     # ---- timings ----
     P = batch - 1
@@ -5046,6 +5212,9 @@ def run(batch: int, root: str):
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": times[t_l] if t_l else None,
         })
+    # the stem: launches on the batched path; its numbers from the stem
+    # phase at batch 32 (each cell's batch under "cells")
+    rows_out.append(stem_row)
     # the pose LM: launches on the SLAM path (System.track_rgbd, run 1, two
     # per frame step, replays included); its numbers from the frame-step
     # phase; no single PyTorch call computes it
@@ -5116,7 +5285,8 @@ def run(batch: int, root: str):
         if row["name"] in ORB_SLAM_KERNELS:
             row["orb_launches"] = orb_launches[row["name"]]
         if row["name"] in stereo_launches and row["name"] in (
-                "detect_candidates", "keypoint_desc", "pose_lm", "local_ba"):
+                "detect_candidates", "keypoint_desc", "pose_lm", "local_ba",
+                "xfeat_stem"):
             row["stereo_launches"] = stereo_launches[row["name"]]
         if vi_launches.get(row["name"]):
             row["imu_rgbd_launches"] = vi_launches[row["name"]]

@@ -299,4 +299,5 @@ def test_cpu_calls_launch_no_kernel(rng):
                                   "pose_lm": 0,
                                   "local_ba": 0,
                                   "orb_fast": 0,
-                                  "orb_describe": 0}
+                                  "orb_describe": 0,
+                                  "xfeat_stem": 0}

@@ -92,12 +92,13 @@ def test_profiled_spans_nest_in_the_trace_and_the_timer(model, frames, timer):
     prof = _profiled(lambda: _pass(model, frames))
     want = {"xfeat.upload": None, "xfeat.extract_batch": None,
             "xfeat.network": "xfeat.extract_batch",
+            "xfeat.stem": "xfeat.network",
             "xfeat.select": "xfeat.extract_batch", "xfeat.match": None}
     assert _parents(prof) == want
     recs = timing.records()
     assert [r[0] for r in recs] == ["xfeat.upload", "xfeat.extract_batch",
-                                    "xfeat.network", "xfeat.select",
-                                    "xfeat.match"]
+                                    "xfeat.network", "xfeat.stem",
+                                    "xfeat.select", "xfeat.match"]
     assert {r[0]: r[1] for r in recs} == want
     for name, _, host, dev in recs:
         assert host > 0 and dev == host, name
@@ -113,7 +114,7 @@ def test_extract_fn_holds_the_resize(model, timer):
     _profiled(lambda: extractor.extract_fn(model, x, K))
     assert {r[0]: r[1] for r in timing.records()} == {
         "xfeat.extract_fn": None, "xfeat.resize": "xfeat.extract_fn",
-        "xfeat.network": "xfeat.extract_fn",
+        "xfeat.network": "xfeat.extract_fn", "xfeat.stem": "xfeat.network",
         "xfeat.select": "xfeat.extract_fn"}
 
 
@@ -124,6 +125,7 @@ def test_sharded_pipeline_on_a_mesh_of_one_nests(model, frames, timer):
     prof = _profiled(lambda: pipe(x))
     want = {"xfeat.pipeline": None, "xfeat.extract_batch": "xfeat.pipeline",
             "xfeat.network": "xfeat.extract_batch",
+            "xfeat.stem": "xfeat.network",
             "xfeat.select": "xfeat.extract_batch",
             "xfeat.match": "xfeat.pipeline"}
     assert _parents(prof) == want
@@ -134,7 +136,7 @@ def test_only_the_newest_profiled_stretch_is_held(model, frames, timer):
     out, _ = _pass(model, frames)
     _profiled(lambda: _pass(model, frames))
     first = len(timer.records)
-    assert first == 5
+    assert first == 6
     tb.match_consecutive(out["desc"], out["valid"])  # the profiler is off
     assert len(timer.records) == first
     _profiled(lambda: [tb.match_consecutive(out["desc"], out["valid"])
@@ -145,7 +147,7 @@ def test_only_the_newest_profiled_stretch_is_held(model, frames, timer):
 def test_records_past_the_cap_are_counted(model, frames, timer, monkeypatch):
     monkeypatch.setattr(timing, "MAX_RECORDS", 3)
     _profiled(lambda: _pass(model, frames))
-    assert len(timer.records) == 3 and timer.dropped == 2
+    assert len(timer.records) == 3 and timer.dropped == 3
 
 
 def test_off_span_is_one_flag_check():
@@ -203,7 +205,8 @@ def test_graph_captured_under_the_profiler_records_no_event(timer):
         g.replay()
         torch.cuda.synchronize()
     assert [r[0] for r in timer.records] == ["xfeat.extract_batch",
-                                             "xfeat.network", "xfeat.select"]
+                                             "xfeat.network", "xfeat.stem",
+                                             "xfeat.select"]
     assert all(r[4] is False and r[5] is False for r in timer.records)
     assert all(r[3] is None for r in timing.records())
     for k in want:

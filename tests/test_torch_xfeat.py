@@ -3,7 +3,9 @@ on the same inputs (made with numpy from a seed) and the same weights
 (carried across with ``from_jax_params``). Float32 on the CPU; the
 tolerances are the golden ones of tests/test_xfeat_golden.py."""
 
+import copy
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from xfeatslam_tpu.models import weights as jw  # noqa: E402
 from xfeatslam_tpu.models import xfeat as jx  # noqa: E402
 from xfeatslam_tpu_torch.models import weights as tw  # noqa: E402
 from xfeatslam_tpu_torch.models import xfeat as tx  # noqa: E402
+from xfeatslam_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 
 import torch_xfeat_ref as tref  # noqa: E402
 
@@ -165,3 +168,118 @@ def test_bf16_compute_keeps_heads_float32(model):
     for a, b in zip(f32, b16):
         assert b.dtype == torch.float32 and torch.isfinite(b).all()
     np.testing.assert_allclose(b16[2].numpy(), f32[2].numpy(), atol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The stem: ops/cuda_kernels.xfeat_stem on a card, xfeat_stem_plain here
+
+
+def _stem_ops(x, model, dt):
+    """The stem as ``XFeat.forward`` ran it op by op before it had a kernel
+    (x already in the weights' dtype)."""
+    F = torch.nn.functional
+    x = x.mean(dim=-1, keepdim=True).permute(0, 3, 1, 2)
+    x = tx.instance_norm(x).contiguous(memory_format=torch.channels_last)
+    x1 = tx._basic_stack(x, model.block1, dt)
+    skip = tx._conv(F.avg_pool2d(x, 4, 4), model.skip1_conv, dt, out_dt=dt)
+    return x1 + skip, tx.unfold2d(x if dt == torch.float32 else x.to(dt), 8)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "float64"])
+@pytest.mark.parametrize("B, H, W", [(2, 64, 96), (1, 480, 640)])
+def test_stem_plain_is_the_ops_it_replaced(model, dt, B, H, W):
+    """``xfeat_stem_plain`` gives the old sequence's outputs bit for bit, in
+    the same memory formats, in each dtype the forward computes in."""
+    m = copy.deepcopy(model).double() if dt == "float64" else model
+    dt = torch.bfloat16 if dt == "bfloat16" else torch.float32
+    x = torch.from_numpy(blob_images(np.random.default_rng(7), B, H, W))
+    x = x.to(m.block1[0].weight.dtype)
+    with torch.no_grad():
+        got = ck.xfeat_stem_plain(x, m.block1, m.skip1_conv, dt)
+        want = _stem_ops(x, m, dt)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.stride() == w.stride()
+        assert torch.equal(g, w)
+
+
+def test_stem_outputs_have_the_layouts_block2_and_the_keypoint_head_take(
+        model):
+    """``block2``'s input (B, 24, H/4, W/4) is channels-last, (B, H/4, W/4,
+    24) in memory, the layout the kernel writes. The keypoint head's input
+    (B, 64, H/8, W/8) is what ``F.pixel_unshuffle`` gives on the device:
+    channels-last here; contiguous on a card, which the kernel writes and
+    tests/test_torch_stem_card.py holds to the plain route's strides."""
+    B, H, W = 2, 64, 96
+    x = torch.from_numpy(blob_images(np.random.default_rng(8), B, H, W))
+    with torch.no_grad():
+        xs, unf = ck.xfeat_stem_plain(x, model.block1, model.skip1_conv)
+    assert xs.shape == (B, 24, H // 4, W // 4)
+    assert xs.stride() == torch.empty(B, H // 4, W // 4, 24).permute(
+        0, 3, 1, 2).stride()
+    assert unf.shape == (B, 64, H // 8, W // 8)
+    assert unf.stride() == torch.empty(B, H // 8, W // 8, 64).permute(
+        0, 3, 1, 2).stride()
+
+
+class _IdentitySplit:
+    """A ``model_split`` that gathers nothing (one model rank)."""
+
+    @staticmethod
+    def enter(t):
+        return t
+
+    @staticmethod
+    def leave(t):
+        return t
+
+
+@pytest.mark.parametrize("route", ["cpu", "float64", "bfloat16", "grad",
+                                   "model_split", "rgb"])
+def test_stem_dispatch_takes_the_plain_route(model, route):
+    """Only a float32 inference pass over gray frames on a card takes the
+    kernel: the predicate, asked about a card's input, says so for the
+    shipped model and refuses float64 weights, bf16 compute, a pass that
+    autograd records, a partitioned conv and three-channel frames. Here
+    every route runs the plain ops and launches nothing."""
+    m, dt, C = model, torch.float32, 1
+    if route == "float64":
+        m = copy.deepcopy(model).double()
+    elif route == "bfloat16":
+        dt = torch.bfloat16
+    elif route == "grad":
+        m = copy.deepcopy(model).requires_grad_(True)
+    elif route == "model_split":
+        m = copy.deepcopy(model)
+        m.block1[1].model_split = _IdentitySplit()
+    elif route == "rgb":
+        C = 3
+    x = torch.from_numpy(blob_images(np.random.default_rng(9), 2, 64, 96))
+    x = x.repeat(1, 1, 1, C)
+    card_x = SimpleNamespace(is_cuda=True, shape=tuple(x.shape),
+                             requires_grad=False)
+    with torch.set_grad_enabled(route == "grad"):
+        assert m._stem_on_kernel(card_x, dt) is (route == "cpu")
+        ck.reset_launch_counts()
+        out = m(x.to(m.block1[0].weight.dtype), compute_dtype=dt)
+    assert ck.xfeat_stem.launches == 0
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    if route == "grad":
+        # the same trainable model under no_grad records nothing: kernel
+        with torch.no_grad():
+            assert m._stem_on_kernel(card_x, dt)
+
+
+def test_stem_wrapper_refuses_cpu_tensors(model):
+    """The kernel's wrapper runs on a card only: the forward's predicate
+    owns the route, and the CPU takes the plain version, which is the
+    model's own op sequence."""
+    x = torch.from_numpy(blob_images(np.random.default_rng(10), 2, 64, 96))
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA"):
+            ck.xfeat_stem(x, model.block1, model.skip1_conv)
+        got = ck.xfeat_stem_plain(x, model.block1, model.skip1_conv)
+        want = tx.stem_plain(x, model.block1, model.skip1_conv)
+    assert ck.xfeat_stem.launches == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and g.stride() == w.stride()

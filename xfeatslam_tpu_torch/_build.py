@@ -27,7 +27,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 KERNELS = ("detect_candidates", "desc_sample", "mnn_pairs", "pose_lm",
-           "local_ba", "orb_fast", "orb_describe")
+           "local_ba", "orb_fast", "orb_describe", "xfeat_stem")
 # the host libraries' (csrc/<name>.cpp) g++ flags
 _HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 

@@ -8,7 +8,10 @@ Public layout follows the JAX package: ``XFeat.forward`` takes images as
 (B,H,W,C) and returns feats (B,H8,W8,64), logits (B,H8,W8,65) and heatmap
 (B,H8,W8,1). Inside, the convolutions run in NCHW with
 ``memory_format=torch.channels_last``, so the returned NHWC tensors are
-free views of the conv outputs.
+free views of the conv outputs. The stem (norm, block1, skip1 and the
+keypoint head's unfold2d) is one hand-written kernel on a float32
+inference pass over gray frames on a card (``ops/cuda_kernels.xfeat_stem``,
+``XFeat._stem_on_kernel``), and these ops (``stem_plain``) everywhere else.
 
 Architecture (see the JAX module's docstring for the reference mapping):
   norm       InstanceNorm2d(1)
@@ -29,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import cuda_kernels as ck
 from ..utils.timing import span
 
 BN_EPS = 1e-5
@@ -104,6 +108,19 @@ def unfold2d(x, ws: int = 8):
 _UPSAMPLE: dict = {}
 
 
+def stem_plain(x, block1, skip1_conv, dt=torch.float32):
+    """The stem op by op: gray mean, instance norm, ``block1``, the 4x4
+    average pool and ``skip1_conv``, their sum, and ``unfold2d`` of the
+    normalized frame, in ``compute_dtype`` ``dt``. Returns ``block2``'s
+    input and the keypoint head's input. The plain version of
+    ``ops/cuda_kernels.xfeat_stem``."""
+    x = x.mean(dim=-1, keepdim=True).permute(0, 3, 1, 2)
+    x = instance_norm(x).contiguous(memory_format=torch.channels_last)
+    x1 = _basic_stack(x, block1, dt)
+    skip = _conv(F.avg_pool2d(x, 4, 4), skip1_conv, dt, out_dt=dt)
+    return x1 + skip, unfold2d(x if dt == torch.float32 else x.to(dt), 8)
+
+
 def _upsample_matrix(n_in: int, n_out: int, like):
     """The (n_out, n_in) weights of ``F.interpolate(mode="bilinear",
     align_corners=False)`` along one axis upsampled by an integer factor:
@@ -160,6 +177,21 @@ class XFeat(nn.Module):
         self.fine_matcher = nn.ModuleList(
             nn.Linear(cin, cout) for (cin, cout) in _FINE_MATCHER)
 
+    def _stem_on_kernel(self, x, dt) -> bool:
+        """Whether the stem takes its kernel (``ops/cuda_kernels.xfeat_stem``):
+        gray frames on a CUDA device, float32 weights and compute, no
+        autograd record of the stem and none of its convs partitioned over
+        a mesh. Everything else (the CPU, bf16, float64, training, the
+        tensor-parallel convs) takes the plain ops."""
+        convs = (*self.block1, self.skip1_conv)
+        params = [p for c in convs for p in (c.weight, c.bias)]
+        return (x.is_cuda and x.shape[-1] == 1 and dt == torch.float32
+                and all(p.dtype == torch.float32 for p in params)
+                and not (torch.is_grad_enabled() and (
+                    x.requires_grad or any(p.requires_grad for p in params)))
+                and all(getattr(c, "model_split", None) is None
+                        for c in convs))
+
     def forward(self, x, compute_dtype=torch.float32):
         """XFeat forward pass.
 
@@ -174,13 +206,14 @@ class XFeat(nn.Module):
             # float32, or float64 for a model made ``.double()`` as a
             # reference
             x = x.to(self.block1[0].weight.dtype)
-            x = x.mean(dim=-1, keepdim=True).permute(0, 3, 1, 2)
-            x = instance_norm(x).contiguous(memory_format=torch.channels_last)
-
-            x1 = _basic_stack(x, self.block1, dt)
-            skip = _conv(F.avg_pool2d(x, 4, 4), self.skip1_conv, dt,
-                         out_dt=dt)
-            x2 = _basic_stack(x1 + skip, self.block2, dt)
+            with span("xfeat.stem"):
+                if self._stem_on_kernel(x, dt):
+                    x1, unfolded = ck.xfeat_stem(x.contiguous(), self.block1,
+                                                 self.skip1_conv)
+                else:
+                    x1, unfolded = stem_plain(x, self.block1,
+                                              self.skip1_conv, dt)
+            x2 = _basic_stack(x1, self.block2, dt)
             x3 = _basic_stack(x2, self.block3, dt)
             x4 = _basic_stack(x3, self.block4, dt)
             x5 = _basic_stack(x4, self.block5, dt)
@@ -194,9 +227,7 @@ class XFeat(nn.Module):
             h = _basic_stack(feats, self.heatmap_head, dt)
             heatmap = torch.sigmoid(_conv(h, self.heatmap_final, dt))
 
-            k = _basic_stack(
-                unfold2d(x if dt == torch.float32 else x.to(dt), 8),
-                self.keypoint_head, dt)
+            k = _basic_stack(unfolded, self.keypoint_head, dt)
             logits = _conv(k, self.keypoint_final, dt)
 
             def nhwc(t):

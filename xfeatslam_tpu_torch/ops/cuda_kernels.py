@@ -32,6 +32,10 @@ Kernels:
                         code in the JAX package: moments, angle, the blur
                         at the samples and rotated BRIEF at the keypoints
                         of every level in one launch from the levels)
+  xfeat_stem            csrc/xfeat_stem.cu         (models/xfeat.py's stem,
+                        XLA convs in the JAX package: the instance norm,
+                        block1, the skip branch and the keypoint head's
+                        space-to-depth in two launches)
 """
 
 from __future__ import annotations
@@ -78,6 +82,9 @@ _ENTRY_POINTS = {
     "orb_fast": ("orb_fast", [_P, _I, _I, _I] + [_P] * 5
                  + [_F, _F, _I, _I, _P]),
     "orb_describe": ("orb_describe", [_P] * 8 + [_I, _P, _P]),
+    "xfeat_stem_chunks": ("xfeat_stem", [_I, _I, _P]),  # host only
+    "xfeat_stem_occupancy": ("xfeat_stem", []),  # host only
+    "xfeat_stem": ("xfeat_stem", [_P] * 7 + [_I] * 5 + [_P]),
 }
 _entries: dict = {}
 
@@ -1050,9 +1057,75 @@ def orb_describe(levels, kpts, valid):
 orb_describe.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# 9. xfeat_stem: the network's full-resolution stem
+
+# (cin, cout, kernel size) of the stem's convs: block1's four, the skip
+_STEM_CONVS = ((1, 4, 3), (4, 8, 3), (8, 8, 3), (8, 24, 3), (1, 24, 1))
+
+
+def xfeat_stem_plain(x, block1, skip1_conv, dt=torch.float32):
+    """Plain version: ``models/xfeat.stem_plain``, the stem op by op in
+    ``compute_dtype`` ``dt``."""
+    from ..models import xfeat  # xfeat imports this module
+
+    return xfeat.stem_plain(x, block1, skip1_conv, dt)
+
+
+def xfeat_stem(x, block1, skip1_conv):
+    """The network's stem in float32: the per-frame instance norm, then
+    ``block1``'s four conv + bias + ReLU plus the skip branch (4x4 average
+    pool, ``skip1_conv``), and the space-to-depth (``unfold2d(., 8)``) of
+    the normalized frame. Two launches: the frames' statistics, then the
+    stem, with no intermediate map in device memory.
+
+    Args:
+      x: (B, H, W, 1) float32 gray frames, H and W multiples of 32.
+      block1: the four ``nn.Conv2d`` of ``XFeat.block1``; skip1_conv its
+        1x1 skip conv; float32 weights in any memory format.
+    Returns ``block2``'s input (B, 24, H/4, W/4), a channels-last view, and
+    the keypoint head's input (B, 64, H/8, W/8), contiguous, in the memory
+    formats ``xfeat_stem_plain`` gives them on a card."""
+    convs = (*block1, skip1_conv)
+    params = [p for c in convs for p in (c.weight, c.bias)]
+    if not _on_cuda(x, *params):
+        raise ValueError("xfeat_stem runs on a CUDA device; elsewhere the "
+                         "stem is xfeat_stem_plain")
+    B, H, W, _ = x.shape
+    _check(x, "x", torch.float32, (B, H, W, 1))
+    if H < 32 or W < 32 or H % 32 or W % 32:
+        raise ValueError(f"xfeat_stem: H and W must be multiples of 32, got "
+                         f"{H}x{W}")
+    for i, (c, (cin, cout, ks)) in enumerate(zip(convs, _STEM_CONVS)):
+        _check(c.bias, f"stem conv {i} bias", torch.float32, (cout,))
+        if c.weight.dtype != torch.float32 or tuple(c.weight.shape) != (
+                cout, cin, ks, ks):
+            raise ValueError(f"stem conv {i}: expected a float32 "
+                             f"({cout}, {cin}, {ks}, {ks}) weight, got "
+                             f"{c.weight.dtype} {tuple(c.weight.shape)}")
+    chunk = ctypes.c_int()
+    S = _entry("xfeat_stem_chunks")(B, H * W, ctypes.addressof(chunk))
+    dev = x.device
+    part = torch.empty((B, S, 2), dtype=torch.float64, device=dev)
+    out = torch.empty((B, H // 4, W // 4, 24), dtype=torch.float32, device=dev)
+    unf = torch.empty((B, 64, H // 8, W // 8), dtype=torch.float32, device=dev)
+    w = (ctypes.c_void_p * 5)(*(c.weight.data_ptr() for c in convs))
+    b = (ctypes.c_void_p * 5)(*(c.bias.data_ptr() for c in convs))
+    strides = (ctypes.c_int * 20)(*(s for c in convs
+                                    for s in c.weight.stride()))
+    _launch("xfeat_stem", x.get_device(), _ptr(x), _ptr(part),
+            ctypes.addressof(w), ctypes.addressof(b), ctypes.addressof(strides),
+            _ptr(out), _ptr(unf), B, H, W, S, chunk.value)
+    xfeat_stem.launches += 2
+    return out.permute(0, 3, 1, 2), unf
+
+
+xfeat_stem.launches = 0
+
+
 _WRAPPERS = (detect_candidates, bilinear_desc_sample, keypoint_desc,
              mutual_nn_pairs, similarity_top2, pose_lm, local_ba, orb_fast,
-             orb_describe)
+             orb_describe, xfeat_stem)
 
 
 def launch_counts() -> dict:

@@ -1,4 +1,5 @@
-"""Command-line tools on the port, each a twin of a script in ``tools/``:
+"""Command-line tools on the port, each a twin of a script in ``tools/``
+but ``network_layers`` (the card only):
 ``python -m xfeatslam_tpu_torch.tools.<name> --help``."""
 
 
